@@ -1,4 +1,4 @@
-"""Fused descriptor distance + row top-2: the CUDA kernel and its plain version.
+"""Fused descriptor distance + row top-2: the CUDA kernel and its plain versions.
 
 Counterpart of ``ergo_uvo_tpu/features/pallas_matcher.py::top2_distances_pallas``.
 For each query row: the smallest squared L2 distance to the valid train rows,
@@ -13,6 +13,10 @@ valid column gives (+inf, 0, +inf).
 * :func:`top2_distances_reference` is the plain PyTorch version on the full
   Q x T matrix; the CPU tests use it and ``chip_smoke.py`` checks the kernel
   against it on the card.
+* The kernel splits the train set over the blocks of a cluster and merges
+  their partial results; the cluster size comes from the shape.
+  :func:`launch_forced` launches it under a given size, for the checks that
+  every size gives the same bits; nothing on the main path calls it.
 * ``LAUNCHES`` counts kernel launches, so a run can show that the main path
   went through the kernel.
 """
@@ -28,19 +32,21 @@ from ergo_uvo_tpu_torch.cuda_build import load_library
 LAUNCHES = 0
 
 
-def top2_distances_reference(
-    desc_q: torch.Tensor, desc_t: torch.Tensor, mask_t: torch.Tensor
-):
-    """(min1 (Q,) f32, idx1 (Q,) i32, min2 (Q,) f32) on the full distance matrix."""
-    Q, T = desc_q.shape[0], desc_t.shape[0]
-    if T == 0:
-        inf = torch.full((Q,), float("inf"), dtype=torch.float32, device=desc_q.device)
-        return inf, torch.zeros(Q, dtype=torch.int32, device=desc_q.device), inf.clone()
+def _masked_distances(desc_q: torch.Tensor, desc_t: torch.Tensor, mask_t: torch.Tensor):
+    """The (Q, T) matrix of squared distances, +inf in the masked columns."""
     qn = (desc_q * desc_q).sum(-1, keepdim=True)
     tn = (desc_t * desc_t).sum(-1)
     cross = desc_q @ desc_t.T
     d2 = torch.clamp(qn + tn[None, :] - 2.0 * cross, min=0.0)
-    d2 = torch.where(mask_t[None, :], d2, float("inf"))
+    return torch.where(mask_t[None, :], d2, float("inf"))
+
+
+def _row_top2(d2: torch.Tensor):
+    """(min1, idx1, min2) of each row of a (Q, T) distance matrix."""
+    Q, T = d2.shape
+    if T == 0:
+        inf = torch.full((Q,), float("inf"), dtype=torch.float32, device=d2.device)
+        return inf, torch.zeros(Q, dtype=torch.int32, device=d2.device), inf.clone()
     min1 = d2.min(dim=1).values
     # torch.argmin returns the first minimal index, like jnp.argmin.
     idx1 = torch.argmin(d2, dim=1).to(torch.int32)
@@ -50,7 +56,45 @@ def top2_distances_reference(
     return min1, idx1, min2
 
 
-def _launch(desc_q: torch.Tensor, desc_t: torch.Tensor, mask_t: torch.Tensor):
+def top2_distances_reference(
+    desc_q: torch.Tensor, desc_t: torch.Tensor, mask_t: torch.Tensor
+):
+    """(min1 (Q,) f32, idx1 (Q,) i32, min2 (Q,) f32) on the full distance matrix."""
+    return _row_top2(_masked_distances(desc_q, desc_t, mask_t))
+
+
+_C_INT = ctypes.c_int
+_C_PTR = ctypes.c_void_p
+
+
+def _library() -> ctypes.CDLL:
+    """The built kernel library; the argument types are set when it is loaded."""
+    lib = load_library("top2_distances")
+    if lib.top2_distances_launch.argtypes is None:
+        lib.top2_distances_plan.argtypes = [_C_INT] * 3 + [_C_PTR]
+        lib.top2_distances_plan.restype = None
+        lib.top2_distances_launch.argtypes = [_C_PTR] * 6 + [_C_INT] * 3 + [_C_PTR]
+        lib.top2_distances_launch.restype = _C_INT
+        lib.top2_distances_launch_forced.argtypes = [_C_PTR] * 6 + [_C_INT] * 4 + [_C_PTR]
+        lib.top2_distances_launch_forced.restype = _C_INT
+    return lib
+
+
+def launch_plan(Q: int, T: int, D: int) -> dict:
+    """The grid the kernel uses at this shape on the current device (for reports)."""
+    out = (_C_INT * 5)()
+    _library().top2_distances_plan(Q, T, D, out)
+    keys = ("cluster", "query_tiles", "cols_per_rank", "q_resident", "smem_bytes")
+    plan = dict(zip(keys, out))
+    plan["blocks"] = plan["query_tiles"] * plan["cluster"]
+    return plan
+
+
+def _launch(
+    desc_q: torch.Tensor, desc_t: torch.Tensor, mask_t: torch.Tensor, splits: int | None = None
+):
+    """Launch the kernel; ``splits`` None lets the C entry point pick the
+    cluster size from the shape, as the main path does."""
     global LAUNCHES
     for name, x in (("desc_q", desc_q), ("desc_t", desc_t), ("mask_t", mask_t)):
         if x.device != desc_q.device:
@@ -75,21 +119,29 @@ def _launch(desc_q: torch.Tensor, desc_t: torch.Tensor, mask_t: torch.Tensor):
     if Q == 0:
         return min1, idx1, min2
 
-    lib = load_library("top2_distances")
-    fn = lib.top2_distances_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = _library()
+    ptrs = (desc_q.data_ptr(), desc_t.data_ptr(), mask_t.data_ptr(),
+            min1.data_ptr(), idx1.data_ptr(), min2.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            desc_q.data_ptr(), desc_t.data_ptr(), mask_t.data_ptr(),
-            min1.data_ptr(), idx1.data_ptr(), min2.data_ptr(),
-            Q, T, D, stream,
-        )
+        if splits is None:
+            err = lib.top2_distances_launch(*ptrs, Q, T, D, stream)
+        else:
+            err = lib.top2_distances_launch_forced(*ptrs, Q, T, D, splits, stream)
     if err != 0:
         raise RuntimeError(f"top2_distances kernel launch failed: cudaError {err}")
     LAUNCHES += 1
     return min1, idx1, min2
+
+
+def launch_forced(
+    desc_q: torch.Tensor, desc_t: torch.Tensor, mask_t: torch.Tensor, splits: int
+):
+    """The kernel under a cluster of ``splits`` blocks (1, 2, 4 or 8) instead
+    of the size its shape picks; CUDA tensors only."""
+    if not desc_q.is_cuda:
+        raise ValueError(f"launch_forced needs CUDA tensors, got {desc_q.device}")
+    return _launch(desc_q, desc_t, mask_t, splits)
 
 
 def top2_distances(desc_q: torch.Tensor, desc_t: torch.Tensor, mask_t: torch.Tensor):

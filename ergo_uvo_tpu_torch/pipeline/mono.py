@@ -13,12 +13,18 @@ Python loop over :func:`mono_vo_step`.  Apart from the method switch in
 ``estimate_relative_pose`` (two ``.item()`` per frame) the step stays on the
 device.  The JAX package's ``optimization_barrier`` calls are fusion hints
 with no eager meaning and are dropped.
+
+The entry points (:func:`mono_vo_init`, :func:`mono_vo_init_from`,
+:func:`run_mono_vo`) run on the card: ``device=None`` means ``"cuda"`` and
+raises where there is none.  The CPU is used only when the caller passes
+``device="cpu"``.  The step functions run where their tensors lie.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from ergo_uvo_tpu_torch.config import MonoVOConfig
@@ -68,12 +74,32 @@ class MonoFrameOutput(NamedTuple):
     median_disparity: torch.Tensor
 
 
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """The device of an entry point: the card unless the caller names another.
+
+    ``None`` is ``"cuda"``; without a card that raises instead of carrying on
+    on the CPU.  A CUDA device without an index is the current one.
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "ergo_uvo_tpu_torch runs on an NVIDIA GPU by default and "
+                "torch.cuda.is_available() is False; pass device=\"cpu\" to run on the CPU"
+            )
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def mono_vo_init(
     max_keypoints: int = 512,
     descriptor_dim: int = 64,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> MonoVOState:
+    device = resolve_device(device)
     return MonoVOState(
         prev_xy=torch.zeros((max_keypoints, 2), dtype=dtype, device=device),
         prev_desc=torch.zeros((max_keypoints, descriptor_dim), dtype=dtype, device=device),
@@ -87,7 +113,9 @@ def mono_vo_init(
 
 
 def mono_vo_init_from(
-    cfg: MonoVOConfig, dtype: torch.dtype = torch.float32, device: torch.device | str = "cpu"
+    cfg: MonoVOConfig,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str | None = None,
 ) -> MonoVOState:
     """State sized from the config (``descriptor_dim`` follows the detector)."""
     return mono_vo_init(cfg.max_keypoints, cfg.descriptor_dim, dtype, device)
@@ -222,14 +250,15 @@ def mono_vo_step_with_features(
 
 
 def run_mono_vo(
-    imgs: torch.Tensor,
-    timestamps: torch.Tensor,
-    ranges: torch.Tensor,
-    K: torch.Tensor,
+    imgs: torch.Tensor | np.ndarray,
+    timestamps: torch.Tensor | np.ndarray,
+    ranges: torch.Tensor | np.ndarray,
+    K: torch.Tensor | np.ndarray,
     cfg: MonoVOConfig,
     generator: torch.Generator | None = None,
     state: MonoVOState | None = None,
     sampler: FrameSampler | None = None,
+    device: torch.device | str | None = None,
 ):
     """Run the mono step over (T, H, W) frames; returns (state, outputs).
 
@@ -237,9 +266,26 @@ def run_mono_vo(
     the T frames.  ``generator`` drives the RANSAC/LMEDS minimal sets;
     ``sampler(frame, method, mask, H, m)`` replaces it when given, so a test
     can feed the JAX package's minimal sets.
+
+    The frames, timestamps, ranges and K may be numpy arrays or tensors on
+    any device; they are moved to ``device`` (``None``: the card, see
+    :func:`resolve_device`), and the outputs lie there.  A ``state`` or a
+    ``generator`` on another device raises.
     """
+    device = resolve_device(device)
+    imgs, timestamps, ranges, K = (
+        torch.as_tensor(x).to(device) for x in (imgs, timestamps, ranges, K)
+    )
+    if generator is not None and resolve_device(generator.device) != device:
+        raise ValueError(f"generator is on {generator.device}, run_mono_vo runs on {device}")
     if state is None:
-        state = mono_vo_init_from(cfg, imgs.dtype, imgs.device)
+        state = mono_vo_init_from(cfg, imgs.dtype, device)
+    else:
+        for name, value in state._asdict().items():
+            if value.device != device:
+                raise ValueError(
+                    f"state.{name} is on {value.device}, run_mono_vo runs on {device}"
+                )
     outs = []
     for i in range(imgs.shape[0]):
         step_sampler = None

@@ -1,4 +1,5 @@
-"""Parity of the port's feature modules with the JAX package (CPU).
+"""Parity of the port's feature modules with the JAX package (CPU), and the
+SURF pins of tests/test_surf_pins.py on the port's own front end.
 
 The JAX side runs as the JAX tests run it: ``detect_surf`` under ``jit``,
 ``top2_distances_pallas(..., interpret=True)`` and the XLA path of
@@ -7,11 +8,14 @@ in tests/test_torch_kernels.py, which imports no JAX so that it runs on the
 machine with the card.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_features import textured_image
 
 from ergo_uvo_tpu.features import detector as jdet
 from ergo_uvo_tpu.features.descriptor import describe_upright_surf as j_describe
@@ -167,3 +171,76 @@ class TestMatcherContract:
                                          t(xy_t), t(dt), torch.ones(16, dtype=torch.bool))
         assert bool(m.mask.all())
         np.testing.assert_array_equal(prev.numpy(), curr.numpy())
+
+
+def _nearest(a, b):
+    d2 = ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1)
+    return d2.argmin(1), np.sqrt(d2.min(1))
+
+
+@pytest.mark.fast
+def test_port_surf_matches_independent_golden():
+    """The port's detector and descriptor against the committed golden of an
+    independent NumPy SURF (tests/fixtures/surf_golden.npz), with the
+    thresholds of tests/test_surf_pins.py::test_surf_matches_independent_golden:
+    the 40 strongest golden keypoints within 2 px (>= 0.95), all of them
+    within 3 px (>= 0.92), median scale ratio in [0.9, 1.1], descriptor
+    cosine mean >= 0.97 and min >= 0.90.  torch and numpy only."""
+    g = np.load(Path(__file__).resolve().parent / "fixtures" / "surf_golden.npz")
+    h, w, n_blobs, seed = (int(v) for v in g["image_spec"])
+    img = t(textured_image(h=h, w=w, n_blobs=n_blobs, seed=seed))
+    kpts = tdet.detect_surf(img, max_keypoints=256, min_hessian=100.0, n_octaves=2)
+    desc = t_describe(img, kpts)
+    mask = kpts.mask.numpy()
+    xy_e, sc_e, d_e = kpts.xy.numpy()[mask], kpts.scale.numpy()[mask], desc.numpy()[mask]
+    assert len(xy_e) >= 60
+    j40, dist40 = _nearest(g["xy"][:40], xy_e)
+    assert (dist40 < 2.0).mean() >= 0.95, dist40
+    _, dist_all = _nearest(g["xy"], xy_e)
+    assert (dist_all < 3.0).mean() >= 0.92, (dist_all < 3.0).mean()
+    m = dist40 < 2.0
+    ratio = sc_e[j40[m]] / g["scales"][:40][m]
+    assert 0.9 <= float(np.median(ratio)) <= 1.1, np.median(ratio)
+    cos = (d_e[j40[m]] * g["desc"][:40][m]).sum(-1)
+    assert float(cos.mean()) >= 0.97, cos.mean()
+    assert float(cos.min()) >= 0.90, cos.min()
+
+
+@pytest.mark.fast
+def test_port_surf_match_epipolar_inlier_rate():
+    """The port's detector, descriptor and ``match_descriptors`` on the
+    synthetic seafloor pair of seed 0, as
+    tests/test_surf_pins.py::test_surf_match_epipolar_inlier_rate: at least
+    120 matches, and >= 85% of them within 1.5 px of the ground-truth
+    epipolar geometry (symmetric epipolar distance)."""
+    seq = make_mono_sequence(n_frames=2, height=240, width=320, dt=0.25, seed=0)
+    K = seq.K.astype(np.float64)
+    Kinv = np.linalg.inv(K)
+    ks, ds = [], []
+    for i in range(2):
+        im = t(seq.imgs_left[i])
+        k = tdet.detect_surf(im, max_keypoints=256, min_hessian=60.0)
+        ks.append(k)
+        ds.append(t_describe(im, k))
+    m = match_descriptors(ds[0], ks[0].mask, ds[1], ks[1].mask, 0.7)
+    mask = m.mask.numpy()
+    xy1 = ks[0].xy.numpy()[mask]
+    xy2 = ks[1].xy.numpy()[m.idx.numpy()[mask]]
+    assert len(xy1) >= 120, len(xy1)
+
+    Rw, C = seq.rotations, seq.positions
+    R_rel = Rw[1] @ Rw[0].T
+    t_rel = Rw[1] @ (C[0] - C[1])
+    t_rel = t_rel / np.linalg.norm(t_rel)
+    E = np.cross(np.eye(3), t_rel) @ R_rel
+    p1 = np.concatenate([xy1, np.ones((len(xy1), 1))], 1) @ Kinv.T
+    p2 = np.concatenate([xy2, np.ones((len(xy2), 1))], 1) @ Kinv.T
+    Ex1 = p1 @ E.T
+    Etx2 = p2 @ E
+    x2Ex1 = (p2 * Ex1).sum(-1)
+    d2 = x2Ex1 ** 2 * (
+        1.0 / (Ex1[:, 0] ** 2 + Ex1[:, 1] ** 2 + 1e-12)
+        + 1.0 / (Etx2[:, 0] ** 2 + Etx2[:, 1] ** 2 + 1e-12)
+    )
+    rate = float((np.sqrt(d2) * K[0, 0] < 1.5).mean())
+    assert rate >= 0.85, rate

@@ -29,7 +29,7 @@ from ergo_uvo_tpu.pipeline import run_mono_vo as j_run_mono_vo
 import ergo_uvo_tpu_torch.config as tconfig
 import ergo_uvo_tpu_torch.io.synthetic as tsynthetic
 from ergo_uvo_tpu_torch.convert import mono_state_from_numpy, mono_state_to_numpy
-from ergo_uvo_tpu_torch.pipeline import mono_vo_step, run_mono_vo
+from ergo_uvo_tpu_torch.pipeline import mono_vo_init, mono_vo_init_from, mono_vo_step, run_mono_vo
 
 PORT_DIR = Path(__file__).resolve().parent.parent / "ergo_uvo_tpu_torch"
 CFG_KW = dict(surf=dict(min_hessian=60.0), max_keypoints=128, num_hypotheses=64)
@@ -95,7 +95,7 @@ def assert_frames_match(port, ref):
 def test_run_mono_vo_matches_jax(seq, jax_outs):
     """(a) The whole slice against JAX run_mono_vo, frame by frame."""
     state, outs = run_mono_vo(t(seq.imgs_left), t(seq.timestamps), t(seq.ranges),
-                              t(seq.K), cfg_of(tconfig), sampler=frame_sampler)
+                              t(seq.K), cfg_of(tconfig), sampler=frame_sampler, device="cpu")
     port = type(outs)(*(x.numpy() for x in outs))
     assert not jax_outs.published[0] and jax_outs.published[1:].all()
     assert_frames_match(port, jax_outs)
@@ -132,6 +132,62 @@ def test_step_from_jax_state_matches_jax(seq, jax_outs):
     ref = type(jax_outs)(*(v[MID + 1:MID + 2] for v in jax_outs))
     assert bool(port.published[0])
     assert_frames_match(port, ref)
+
+
+@pytest.fixture(scope="module")
+def tiny_seq():
+    return tsynthetic.make_mono_sequence(n_frames=2, height=48, width=64, dt=0.25, seed=3)
+
+
+@pytest.mark.fast
+def test_entry_points_default_to_the_card(tiny_seq, monkeypatch):
+    """With no ``device`` the entry points ask for the card and, where there
+    is none, raise and name ``device="cpu"``; they never carry on on the CPU
+    by themselves.  (torch.cuda.is_available is pinned to False so that the
+    test says the same on a machine with a card.)"""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = cfg_of(tconfig)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        mono_vo_init()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        mono_vo_init_from(cfg)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        run_mono_vo(tiny_seq.imgs_left, tiny_seq.timestamps, tiny_seq.ranges, tiny_seq.K, cfg)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        run_mono_vo(t(tiny_seq.imgs_left), t(tiny_seq.timestamps), t(tiny_seq.ranges),
+                    t(tiny_seq.K), cfg)
+
+
+@pytest.mark.fast
+def test_run_mono_vo_takes_numpy_and_tensors_alike():
+    """On ``device="cpu"`` numpy inputs and CPU tensors give the same state
+    and outputs, bit for bit (the same seed drives the minimal sets), and
+    both lie on the device asked for.  Two frames of 128x96, the smallest
+    size at which the second frame finds the 20 features it needs to
+    publish (64x48 finds 7)."""
+    cfg = cfg_of(tconfig)
+    seq = tsynthetic.make_mono_sequence(n_frames=2, height=96, width=128, dt=0.25, seed=3)
+    arrays = (seq.imgs_left, seq.timestamps, seq.ranges, seq.K)
+    runs = []
+    for inputs in (arrays, tuple(t(a) for a in arrays)):
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        runs.append(run_mono_vo(*inputs, cfg, gen, device="cpu"))
+    (state_a, outs_a), (state_b, outs_b) = runs
+    for a, b in zip(tuple(state_a) + tuple(outs_a), tuple(state_b) + tuple(outs_b)):
+        assert a.device.type == "cpu" and torch.equal(a, b)
+    assert outs_a.velocity.shape == (2, 3) and bool(state_a.initialized)
+    assert outs_a.published.tolist() == [False, True] and int(outs_a.num_matches[1]) >= 20
+
+
+@pytest.mark.fast
+def test_run_mono_vo_refuses_a_state_on_another_device(tiny_seq):
+    """A state or a generator that lies elsewhere than ``device`` raises; the
+    meta device stands in for the other device here."""
+    cfg = cfg_of(tconfig)
+    arrays = (tiny_seq.imgs_left, tiny_seq.timestamps, tiny_seq.ranges, tiny_seq.K)
+    state = mono_vo_init_from(cfg, device="meta")
+    with pytest.raises(ValueError, match="state.prev_xy is on meta"):
+        run_mono_vo(*arrays, cfg, state=state, device="cpu")
 
 
 @pytest.mark.fast
