@@ -1,0 +1,24 @@
+"""Where an entry point of the port runs: the card unless the caller names another device."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """The device of an entry point: the card unless the caller names another.
+
+    ``None`` is ``"cuda"``; without a card that raises instead of carrying on
+    on the CPU.  A CUDA device without an index is the current one.
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "ergo_uvo_tpu_torch runs on an NVIDIA GPU by default and "
+                "torch.cuda.is_available() is False; pass device=\"cpu\" to run on the CPU"
+            )
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device

@@ -1,4 +1,4 @@
-"""Relative-pose estimation of the mono slice (PyTorch)."""
+"""Pose estimation of the port: essential / homography (mono) and P3P + PnP RANSAC (stereo)."""
 
 from ergo_uvo_tpu_torch.estimation.essential import (  # noqa: F401
     eight_point_essential,
@@ -12,6 +12,12 @@ from ergo_uvo_tpu_torch.estimation.homography import (  # noqa: F401
     four_point_homography,
     homography_transfer_error_sq,
     recover_pose_homography,
+)
+from ergo_uvo_tpu_torch.estimation.p3p import p3p  # noqa: F401
+from ergo_uvo_tpu_torch.estimation.pnp import (  # noqa: F401
+    PnPResult,
+    gauss_newton_pnp,
+    solve_pnp_ransac,
 )
 from ergo_uvo_tpu_torch.estimation.relative_pose import (  # noqa: F401
     RelativePoseResult,

@@ -7,6 +7,7 @@ into (sum dx, sum |dx|, sum dy, sum |dy|), and the vector is L2-normalized.
 The JAX package samples the axis-aligned grid with two hat-weight matmuls,
 because gathers are slow on the TPU; both compute clamped bilinear sampling,
 so here it is four gathers.  Oriented SURF (``upright=False``) is not ported.
+Leading frame dimensions go through: the gathers carry a frame index.
 """
 
 from __future__ import annotations
@@ -20,28 +21,30 @@ _GAUSS_SIGMA = 3.3  # Bay et al.: sigma = 3.3s over the 20s window
 
 
 def _sample_patches(img: torch.Tensor, xy: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """(K, P1, P1) axis-aligned patches at spacing ``scale``, clamped bilinear.
+    """(B, K, P1, P1) axis-aligned patches at spacing ``scale``, clamped
+    bilinear, from (B, H, W) images, (B, K, 2) centers and (B, K) scales.
 
     Coordinates are clamped to [0, size-1] first, like the hat-weight matmul
     form of the JAX package, so a sample on the last row or column takes that
     pixel alone.
     """
-    h, w = img.shape
+    n_b, h, w = img.shape
     P1 = PATCH + 1
     g = torch.arange(P1, dtype=img.dtype, device=img.device) - PATCH / 2.0
-    sy = torch.clamp(xy[:, 1:2] + g[None] * scale[:, None], 0, h - 1)  # (K, P1)
-    sx = torch.clamp(xy[:, 0:1] + g[None] * scale[:, None], 0, w - 1)
+    sy = torch.clamp(xy[..., 1:2] + g * scale[..., None], 0, h - 1)  # (B, K, P1)
+    sx = torch.clamp(xy[..., 0:1] + g * scale[..., None], 0, w - 1)
     y0 = torch.floor(sy)
     x0 = torch.floor(sx)
-    wy = (sy - y0)[:, :, None]  # (K, P1, 1): rows
-    wx = (sx - x0)[:, None, :]  # (K, 1, P1): columns
+    wy = (sy - y0)[..., :, None]  # (B, K, P1, 1): rows
+    wx = (sx - x0)[..., None, :]  # (B, K, 1, P1): columns
     y0i = y0.long()
     x0i = x0.long()
     y1i = torch.clamp(y0i + 1, max=h - 1)
     x1i = torch.clamp(x0i + 1, max=w - 1)
+    frame = torch.arange(n_b, device=img.device)[:, None, None, None]
 
     def at(yi, xi):
-        return img[yi[:, :, None], xi[:, None, :]]  # (K, P1, P1)
+        return img[frame, yi[..., :, None], xi[..., None, :]]  # (B, K, P1, P1)
 
     top = at(y0i, x0i) * (1 - wx) + at(y0i, x1i) * wx
     bot = at(y1i, x0i) * (1 - wx) + at(y1i, x1i) * wx
@@ -51,7 +54,8 @@ def _sample_patches(img: torch.Tensor, xy: torch.Tensor, scale: torch.Tensor) ->
 def describe_surf(
     img: torch.Tensor, kpts: Keypoints, extended: bool = False, upright: bool = True,
 ) -> torch.Tensor:
-    """(K, 64|128) unit descriptors; only the upright branch is ported."""
+    """(..., K, 64|128) unit descriptors of (..., H, W) images; only the
+    upright branch is ported."""
     if not upright:
         raise NotImplementedError(
             "oriented SURF (upright=False) is not ported yet: ROADMAP.md "
@@ -63,9 +67,14 @@ def describe_surf(
 def describe_upright_surf(
     img: torch.Tensor, kpts: Keypoints, extended: bool = False
 ) -> torch.Tensor:
-    """(K, 64) (or (K, 128) if extended) unit descriptors; invalid rows -> 0."""
-    patch = _sample_patches(img, kpts.xy, kpts.scale)
-    return _descriptor_from_patch(patch, kpts.mask, extended)
+    """(..., K, 64) (or 128 if extended) unit descriptors; invalid rows -> 0."""
+    *batch, h, w = img.shape
+    n_k = kpts.mask.shape[-1]
+    patch = _sample_patches(
+        img.reshape(-1, h, w), kpts.xy.reshape(-1, n_k, 2), kpts.scale.reshape(-1, n_k)
+    )
+    desc = _descriptor_from_patch(patch.flatten(0, 1), kpts.mask.reshape(-1), extended)
+    return desc.reshape(*batch, n_k, -1)
 
 
 def _descriptor_from_patch(

@@ -10,6 +10,12 @@ merge.  What changes in the translation:
   which pads with -inf too;
 * ``lax.top_k`` puts the lower index first on ties and ``torch.topk``
   promises no order, so selection is a stable descending sort (:func:`top_k`).
+
+Every stage takes leading frame dimensions, where the JAX package ``vmap``s
+the detector: the box sums and the NMS are elementwise or pooled per frame,
+the top-K is a sort along the last axis, and the refinement gathers with a
+frame index.  Nothing is looped over frames, and a batch gives each frame
+the bits it gets alone.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ class Keypoints(NamedTuple):
 
     @property
     def count(self) -> torch.Tensor:
-        return self.mask.sum(dtype=torch.int32)
+        return self.mask.sum(-1, dtype=torch.int32)
 
 
 def top_k(x: torch.Tensor, k: int):
@@ -76,7 +82,7 @@ def _strided_box_sum(iip, margin, h, w, step, y0, x0, y1, x1):
     shape (ceil(h/step), ceil(w/step))."""
 
     def corner(dy, dx):
-        return iip[margin + dy: margin + dy + h: step, margin + dx: margin + dx + w: step]
+        return iip[..., margin + dy: margin + dy + h: step, margin + dx: margin + dx + w: step]
 
     return corner(y1, x1) - corner(y0, x1) - corner(y1, x0) + corner(y0, x0)
 
@@ -98,7 +104,7 @@ def filter_sizes(n_octaves: int, n_layers: int):
 
 
 def hessian_octave(iip, margin: int, h: int, w: int, octave: int, sizes_o):
-    """(det, trace) stacks for one octave, each (n_layers+2, ceil(h/2^o), ceil(w/2^o))."""
+    """(det, trace) stacks for one octave, each (..., n_layers+2, ceil(h/2^o), ceil(w/2^o))."""
     step = 1 << octave
     dets, traces = [], []
     for s in sizes_o:
@@ -107,21 +113,22 @@ def hessian_octave(iip, margin: int, h: int, w: int, octave: int, sizes_o):
         dxy = _haar_response(iip, margin, h, w, step, _scaled_pattern(_DXY, s))
         dets.append(dx * dy - 0.81 * dxy * dxy)
         traces.append(dx + dy)
-    return torch.stack(dets), torch.stack(traces)
+    return torch.stack(dets, dim=-3), torch.stack(traces, dim=-3)
 
 
 def _octave_candidates(
     dets, traces, octave: int, sizes_o, h: int, w: int,
     max_keypoints: int, min_hessian: float,
 ):
-    """Top-K refined candidates of one octave: (score, xy, sigma, laplacian, mask)."""
-    n_l, h_o, w_o = dets.shape
+    """Top-K refined candidates of one octave of B frames, from (B, n_l, h_o,
+    w_o) stacks: (score (B, K), xy (B, K, 2), sigma, laplacian, mask)."""
+    n_b, n_l, h_o, w_o = dets.shape
     step = 1 << octave
     n_middle = n_l - 2
     device = dets.device
 
     # ---- 3x3x3 NMS over the octave's layer stack.
-    neighborhood_max = F.max_pool3d(dets[None, None], 3, stride=1, padding=1)[0, 0]
+    neighborhood_max = F.max_pool3d(dets[:, None], 3, stride=1, padding=1)[:, 0]
     is_peak = (dets >= neighborhood_max) & (dets > min_hessian)
 
     # Validity: middle layers only, filter-fit margins (the layer above's
@@ -143,8 +150,8 @@ def _octave_candidates(
     candidates = is_peak & torch.stack(valid_layers)
 
     # ---- top-K within the octave.
-    flat_scores = torch.where(candidates, dets, float("-inf")).reshape(-1)
-    k = min(max_keypoints, flat_scores.shape[0])
+    flat_scores = torch.where(candidates, dets, float("-inf")).reshape(n_b, -1)
+    k = min(max_keypoints, flat_scores.shape[-1])
     scores, idx = top_k(flat_scores, k)
     if k < max_keypoints:
         pad = max_keypoints - k
@@ -155,13 +162,14 @@ def _octave_candidates(
     y_idx = rem // w_o
     x_idx = rem % w_o
     mask = torch.isfinite(scores) & (scores > min_hessian)
+    frame = torch.arange(n_b, device=device)[:, None]
 
     # ---- batched quadratic sub-pixel / sub-scale refinement.
     def nb(dl, dy, dx):
         ll = torch.clamp(l_idx + dl, 0, n_l - 1)
         yy = torch.clamp(y_idx + dy, 1, h_o - 2)
         xx = torch.clamp(x_idx + dx, 1, w_o - 2)
-        return dets[ll, yy, xx]
+        return dets[frame, ll, yy, xx]
 
     d_l = 0.5 * (nb(1, 0, 0) - nb(-1, 0, 0))
     d_y = 0.5 * (nb(0, 1, 0) - nb(0, -1, 0))
@@ -182,21 +190,21 @@ def _octave_candidates(
         -2,
     )
     g = torch.stack([d_l, d_y, d_x], -1)
-    offset = torch.clamp(-_solve33(H3, g), -1.0, 1.0)  # (K, 3) in (layer, y, x)
+    offset = torch.clamp(-_solve33(H3, g), -1.0, 1.0)  # (B, K, 3) in (layer, y, x)
 
     # ---- assemble in image coordinates (strided-grid units * step).
     sizes_arr = torch.tensor(sizes_o, dtype=torch.float32, device=device)
     base_size = sizes_arr[l_idx]
     size_step = float(6 << octave)
-    sigma = 1.2 * (base_size + offset[:, 0] * size_step) / 9.0
+    sigma = 1.2 * (base_size + offset[..., 0] * size_step) / 9.0
     xy = torch.stack(
         [
-            (x_idx.to(torch.float32) + offset[:, 2]) * step,
-            (y_idx.to(torch.float32) + offset[:, 1]) * step,
+            (x_idx.to(torch.float32) + offset[..., 2]) * step,
+            (y_idx.to(torch.float32) + offset[..., 1]) * step,
         ],
         -1,
     )
-    lap = torch.sign(traces[l_idx, y_idx, x_idx])
+    lap = torch.sign(traces[frame, l_idx, y_idx, x_idx])
     return scores, xy, sigma, lap, mask
 
 
@@ -207,11 +215,13 @@ def detect_surf(
     n_octaves: int = 4,
     n_layers: int = 3,
 ) -> Keypoints:
-    """Up to ``max_keypoints`` SURF keypoints of a (H, W) float32 image.
+    """Up to ``max_keypoints`` SURF keypoints of each (..., H, W) float32 image.
 
     Slots beyond the number of detections have mask=False and zero fields.
+    Leading dimensions are frames and lead every field of the result.
     """
-    h, w = img.shape
+    *batch, h, w = img.shape
+    img = img.reshape(-1, h, w)
     sizes = filter_sizes(n_octaves, n_layers)
     max_size = sizes[-1][-1]
     # Pattern corner offsets are in [-size//2, size - size//2]; +2 slack.
@@ -229,23 +239,25 @@ def detect_surf(
         )
 
     # ---- global top-K merge across octaves.
-    scores = torch.cat([p[0] for p in per_octave])
-    xy = torch.cat([p[1] for p in per_octave])
-    sigma = torch.cat([p[2] for p in per_octave])
-    lap = torch.cat([p[3] for p in per_octave])
-    mask = torch.cat([p[4] for p in per_octave])
+    scores = torch.cat([p[0] for p in per_octave], dim=-1)
+    xy = torch.cat([p[1] for p in per_octave], dim=-2)
+    sigma = torch.cat([p[2] for p in per_octave], dim=-1)
+    lap = torch.cat([p[3] for p in per_octave], dim=-1)
+    mask = torch.cat([p[4] for p in per_octave], dim=-1)
 
     merged = torch.where(mask, scores, float("-inf"))
     top_scores, top_idx = top_k(merged, max_keypoints)
     top_mask = torch.isfinite(top_scores)
-    xy = xy[top_idx]
-    sigma = sigma[top_idx]
-    lap = lap[top_idx]
+    frame = torch.arange(img.shape[0], device=img.device)[:, None]
+    xy = xy[frame, top_idx]
+    sigma = sigma[frame, top_idx]
+    lap = lap[frame, top_idx]
     zero = torch.zeros_like(sigma)
-    return Keypoints(
-        xy=torch.where(top_mask[:, None], xy, 0.0),
+    kpts = Keypoints(
+        xy=torch.where(top_mask[..., None], xy, 0.0),
         scale=torch.where(top_mask, sigma, zero),
         score=torch.where(top_mask, top_scores, zero),
         laplacian=torch.where(top_mask, lap, zero),
         mask=top_mask,
     )
+    return Keypoints(*(f.reshape(*batch, *f.shape[1:]) for f in kpts))

@@ -19,7 +19,8 @@ def detect_and_describe(
     max_keypoints: int = 512,
     feature_detector: str = "SURF",
 ) -> tuple[Keypoints, torch.Tensor]:
-    """(Keypoints, descriptors) for a preprocessed gray frame.
+    """(Keypoints, descriptors) for a preprocessed gray frame, or for
+    (..., H, W) frames at once: leading dimensions lead every output.
 
     The JAX package's ORB, SIFT and AKAZE knobs come with those branches.
     """

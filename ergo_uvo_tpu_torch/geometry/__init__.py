@@ -1,8 +1,10 @@
-"""Geometry primitives of the mono slice (PyTorch)."""
+"""Geometry primitives of the port (PyTorch)."""
 
 from ergo_uvo_tpu_torch.geometry.camera import projection_matrix  # noqa: F401
 from ergo_uvo_tpu_torch.geometry.linalg import (  # noqa: F401
+    inv33,
     jacobi_eigh,
+    polar_so3,
     smallest_eigvec,
 )
 from ergo_uvo_tpu_torch.geometry.rotations import (  # noqa: F401

@@ -6,6 +6,9 @@ ascending sort): its eigenvector sign feeds the essential matrix and the
 homography refit, so ``torch.linalg.eigh`` (whose signs differ) is not a
 substitute.  In eager mode each of the 252 rotations of a 9x9 solve is a few
 dozen small elementwise launches, whatever the batch size.
+
+:func:`inv33` and :func:`polar_so3` are the closed-form 3x3 inverse and the
+Newton polar projection onto SO(3) that the PnP solver's DLT uses.
 """
 
 from __future__ import annotations
@@ -65,6 +68,55 @@ def smallest_eigvec(A: torch.Tensor, sweeps: int = 7) -> torch.Tensor:
     _, V = jacobi_eigh(A, sweeps)
     v = V[..., :, 0]
     return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=1e-20)
+
+
+def cbrt(x: torch.Tensor) -> torch.Tensor:
+    """Real cube root, ``sign(x) * |x|^(1/3)`` (torch has no ``cbrt``)."""
+    return torch.sign(x) * x.abs().pow(1.0 / 3.0)
+
+
+def inv33(A: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
+    """Closed-form batched 3x3 inverse via the adjugate."""
+    a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    a10, a11, a12 = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    a20, a21, a22 = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    c00 = a11 * a22 - a12 * a21
+    c01 = a12 * a20 - a10 * a22
+    c02 = a10 * a21 - a11 * a20
+    det = a00 * c00 + a01 * c01 + a02 * c02
+    c10 = a02 * a21 - a01 * a22
+    c11 = a00 * a22 - a02 * a20
+    c12 = a01 * a20 - a00 * a21
+    c20 = a01 * a12 - a02 * a11
+    c21 = a02 * a10 - a00 * a12
+    c22 = a00 * a11 - a01 * a10
+    adj = torch.stack(
+        [
+            torch.stack([c00, c10, c20], -1),
+            torch.stack([c01, c11, c21], -1),
+            torch.stack([c02, c12, c22], -1),
+        ],
+        -2,
+    )
+    safe = torch.where(det.abs() < eps, torch.where(det < 0, -eps, eps), det)
+    return adj / safe[..., None, None]
+
+
+def polar_so3(M: torch.Tensor, iters: int = 12) -> torch.Tensor:
+    """Project batched near-rotations (..., 3, 3) onto SO(3).
+
+    Newton iteration for the polar factor, X <- (X + X^-T)/2, from a
+    Frobenius-normalized start, then a determinant sign fix on the last
+    column (exact when M was a reflection of a rotation).  Converges
+    quadratically for any nonsingular M.
+    """
+    scale = torch.sqrt(torch.clamp((M * M).sum(dim=(-2, -1), keepdim=True) / 3.0, min=1e-20))
+    X = M / scale
+    for _ in range(iters):
+        X = 0.5 * (X + inv33(X).transpose(-1, -2))
+    d = torch.sign(torch.linalg.det(X))
+    fix = torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1)
+    return X * fix[..., None, :]
 
 
 def svd_or_nan(M: torch.Tensor):

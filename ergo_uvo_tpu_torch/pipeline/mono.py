@@ -15,19 +15,22 @@ device.  The JAX package's ``optimization_barrier`` calls are fusion hints
 with no eager meaning and are dropped.
 
 The entry points (:func:`mono_vo_init`, :func:`mono_vo_init_from`,
-:func:`run_mono_vo`) run on the card: ``device=None`` means ``"cuda"`` and
-raises where there is none.  The CPU is used only when the caller passes
-``device="cpu"``.  The step functions run where their tensors lie.
+:func:`run_mono_vo`, :func:`run_mono_vo_batched_features`) run on the card:
+``device=None`` means ``"cuda"`` and raises where there is none.  The CPU is
+used only when the caller passes ``device="cpu"``.  The step functions run
+where their tensors lie.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from ergo_uvo_tpu_torch.config import MonoVOConfig
+from ergo_uvo_tpu_torch.device import resolve_device
 from ergo_uvo_tpu_torch.estimation.relative_pose import MethodSampler, estimate_relative_pose
 from ergo_uvo_tpu_torch.features.detector import Keypoints
 from ergo_uvo_tpu_torch.features.frontend import detect_and_describe
@@ -72,25 +75,6 @@ class MonoFrameOutput(NamedTuple):
     num_3d_points: torch.Tensor
     used_essential: torch.Tensor
     median_disparity: torch.Tensor
-
-
-def resolve_device(device: torch.device | str | None) -> torch.device:
-    """The device of an entry point: the card unless the caller names another.
-
-    ``None`` is ``"cuda"``; without a card that raises instead of carrying on
-    on the CPU.  A CUDA device without an index is the current one.
-    """
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "ergo_uvo_tpu_torch runs on an NVIDIA GPU by default and "
-                "torch.cuda.is_available() is False; pass device=\"cpu\" to run on the CPU"
-            )
-        device = "cuda"
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 def mono_vo_init(
@@ -249,6 +233,29 @@ def mono_vo_step_with_features(
     return next_state, out
 
 
+def _run_inputs(name, imgs, timestamps, ranges, K, cfg, generator, state, device):
+    """Move a runner's inputs to its device and check what the caller brought."""
+    device = resolve_device(device)
+    imgs, timestamps, ranges, K = (
+        torch.as_tensor(x).to(device) for x in (imgs, timestamps, ranges, K)
+    )
+    if generator is not None and resolve_device(generator.device) != device:
+        raise ValueError(f"generator is on {generator.device}, {name} runs on {device}")
+    if state is None:
+        state = mono_vo_init_from(cfg, imgs.dtype, device)
+    else:
+        for field, value in state._asdict().items():
+            if value.device != device:
+                raise ValueError(
+                    f"state.{field} is on {value.device}, {name} runs on {device}"
+                )
+    return imgs, timestamps, ranges, K, state
+
+
+def _bind_frame(sampler: FrameSampler | None, i: int) -> MethodSampler | None:
+    return None if sampler is None else functools.partial(sampler, i)
+
+
 def run_mono_vo(
     imgs: torch.Tensor | np.ndarray,
     timestamps: torch.Tensor | np.ndarray,
@@ -269,30 +276,55 @@ def run_mono_vo(
 
     The frames, timestamps, ranges and K may be numpy arrays or tensors on
     any device; they are moved to ``device`` (``None``: the card, see
-    :func:`resolve_device`), and the outputs lie there.  A ``state`` or a
-    ``generator`` on another device raises.
+    :func:`~ergo_uvo_tpu_torch.device.resolve_device`), and the outputs lie
+    there.  A ``state`` or a ``generator`` on another device raises.
     """
-    device = resolve_device(device)
-    imgs, timestamps, ranges, K = (
-        torch.as_tensor(x).to(device) for x in (imgs, timestamps, ranges, K)
+    imgs, timestamps, ranges, K, state = _run_inputs(
+        "run_mono_vo", imgs, timestamps, ranges, K, cfg, generator, state, device
     )
-    if generator is not None and resolve_device(generator.device) != device:
-        raise ValueError(f"generator is on {generator.device}, run_mono_vo runs on {device}")
-    if state is None:
-        state = mono_vo_init_from(cfg, imgs.dtype, device)
-    else:
-        for name, value in state._asdict().items():
-            if value.device != device:
-                raise ValueError(
-                    f"state.{name} is on {value.device}, run_mono_vo runs on {device}"
-                )
     outs = []
     for i in range(imgs.shape[0]):
-        step_sampler = None
-        if sampler is not None:
-            step_sampler = lambda method, m, h, k, i=i: sampler(i, method, m, h, k)  # noqa: E731
         state, out = mono_vo_step(
-            state, imgs[i], timestamps[i], ranges[i], K, cfg, generator, step_sampler
+            state, imgs[i], timestamps[i], ranges[i], K, cfg, generator, _bind_frame(sampler, i)
+        )
+        outs.append(out)
+    stacked = MonoFrameOutput(*(torch.stack(field) for field in zip(*outs)))
+    return state, stacked
+
+
+def run_mono_vo_batched_features(
+    imgs: torch.Tensor | np.ndarray,
+    timestamps: torch.Tensor | np.ndarray,
+    ranges: torch.Tensor | np.ndarray,
+    K: torch.Tensor | np.ndarray,
+    cfg: MonoVOConfig,
+    generator: torch.Generator | None = None,
+    state: MonoVOState | None = None,
+    sampler: FrameSampler | None = None,
+    device: torch.device | str | None = None,
+):
+    """:func:`run_mono_vo` with detection taken out of the frame loop.
+
+    Features do not depend on the state, so ``detect_and_describe`` runs
+    once on all T frames (truly batched: the integral image, the box sums,
+    the NMS, the stable-sort top-K, the quadratic refinement and the
+    descriptor gathers all carry the frame dimension; nothing is looped),
+    and the loop carries only match -> pose -> triangulate -> scale
+    (:func:`mono_vo_step_with_features`).  Every op of the batch gives a
+    frame the bits it gets alone, so the outputs equal :func:`run_mono_vo`'s.
+    The detector's intermediates grow with T.
+    Same arguments, ``device=None`` rule and ``sampler`` hook as
+    :func:`run_mono_vo`.
+    """
+    imgs, timestamps, ranges, K, state = _run_inputs(
+        "run_mono_vo_batched_features", imgs, timestamps, ranges, K, cfg, generator, state, device
+    )
+    kpts, descs = detect_and_describe(imgs, cfg.surf, cfg.max_keypoints, cfg.feature_detector)
+    outs = []
+    for i in range(imgs.shape[0]):
+        state, out = mono_vo_step_with_features(
+            state, Keypoints(*(f[i] for f in kpts)), descs[i], timestamps[i], ranges[i],
+            K, cfg, generator, _bind_frame(sampler, i),
         )
         outs.append(out)
     stacked = MonoFrameOutput(*(torch.stack(field) for field in zip(*outs)))
