@@ -5,7 +5,8 @@
 
 Run from the root of a checkout.  It imports nothing of JAX or of
 ``ergo_uvo_tpu``; every check that fails raises, so any failure exits
-non-zero.  Eight phases, one JSON line each:
+non-zero.  It writes only under ``build/chip_smoke/`` in the checkout.
+Twelve phases, one JSON line each:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. build: nvcc builds ``ergo_uvo_tpu_torch/csrc/top2_distances.cu`` from the
@@ -35,13 +36,32 @@ non-zero.  Eight phases, one JSON line each:
 8. slice_stereo: ``run_stereo_vo`` on 24 synthetic 640x480 pairs (SURF, 512
    keypoints, 512 minimal sets, P3P + PnP RANSAC): two kernel launches a
    frame, the outputs against ground truth, frames 2..23 timed, then the
-   stages of one frame timed apart and two frames under torch.profiler.
+   stages of one frame timed apart and two frames under torch.profiler;
+9. stream_mono: ``run_mono_vo_streaming`` over the 24 frames of
+   ``slice_undistorted`` (seen through the lens, its plan) from an
+   ``ArraySource`` in chunks of 8: one kernel launch a frame, the outputs
+   and final state equal ``preprocess_frame`` then ``run_mono_vo`` with the
+   same generator seed bit for bit; then a run in chunks of 7 that
+   checkpoints every chunk and dies after chunk 2 (14 frames), resumed from
+   the checkpoint in chunks of 5 (10 frames): outputs and final state equal
+   the uninterrupted run's bit for bit; frames/s, ms per frame (stream and
+   bulk, same frames), the time of a checkpoint write;
+10. stream_stereo: the same for the 24 pairs of ``slice_stereo`` under two
+   plans without distortion or CLAHE: two launches a frame;
+11. cli_mono and 12. cli_stereo: ``ergo_uvo_tpu_torch.cli.main`` on 24
+   synthetic 640x480 frames (pairs), the main paths' configs through
+   ``--params``, chunks of 8, no ``--device``: valid == published on frames
+   1..23, a finite ATE, every chunk's outputs on the card when read back,
+   the launches a frame, and the CLI's summary.
 
-Then the kernel summary line and, last, ``{"ok": true, "device": ...}``.
+Then the kernel summary line (launches on every path) and, last,
+``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import statistics
 import subprocess
@@ -50,6 +70,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+WORK_DIR = ROOT / "build" / "chip_smoke"  # checkpoints and CLI outputs (git-ignored)
 KERNEL_SOURCE = "ergo_uvo_tpu_torch/csrc/top2_distances.cu"
 KERNEL_REPLACES = "ergo_uvo_tpu/features/pallas_matcher.py:83"
 N_FRAMES = 24
@@ -476,7 +497,8 @@ def phase_slice_preprocessed(torch, seq, plan, frames):
     _mono_phase(torch, "slice_preprocessed_pinhole_frames", run_mono_vo, frames, plan.new_K, seq,
                 N_BATCHED, {"K": "plan.new_K"}, rmse_bound=None)
     dist = np.array(LENS_DISTORTION)
-    lens_seq, lens_frames, K_lens = _through_the_lens(torch, dist)
+    lens = _through_the_lens(torch, dist)
+    lens_seq, lens_frames, K_lens = lens
     for clahe_on, phase, n, bound in ((False, "slice_undistorted", N_BATCHED, 0.35),
                                       (True, "slice_preprocessed", N_FRAMES, 0.5)):
         lens_plan = build_preprocess_plan(K_lens, dist, 640, 480, plan.new_w,
@@ -486,7 +508,7 @@ def phase_slice_preprocessed(torch, seq, plan, frames):
                                   {"K": "plan.new_K", "clahe": clahe_on,
                                    "frames_seen_through_lens": LENS_DISTORTION,
                                    "max_shift": lens_plan.max_shift}, rmse_bound=bound)
-    return launches
+    return launches, lens
 
 
 def phase_slice_batched(torch, seq, slice_outs):
@@ -583,19 +605,14 @@ def phase_slice_stereo(torch):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from ergo_uvo_tpu_torch.config import StereoVOConfig, SurfConfig
-    from ergo_uvo_tpu_torch.convert import stereo_rig_from_numpy
     from ergo_uvo_tpu_torch.features import top2_matcher
     from ergo_uvo_tpu_torch.io import make_stereo_sequence
     from ergo_uvo_tpu_torch.pipeline import run_stereo_vo
 
     dev = torch.device("cuda")
-    cfg = StereoVOConfig(surf=SurfConfig(min_hessian=60.0), max_keypoints=512, num_hypotheses=512)
+    cfg = _stereo_config()
     seq = make_stereo_sequence(n_frames=N_FRAMES, height=480, width=640, seed=2)
-    K32 = seq.K.astype(np.float32)
-    rig = stereo_rig_from_numpy(
-        dict(K_left=K32, K_right=K32, R_right=np.eye(3, dtype=np.float32),
-             t_right=np.asarray([-0.33, 0.0, 0.0], np.float32)), dev)
+    rig = _bench_rig(torch, seq)
     il, ir, ts = seq.imgs_left, seq.imgs_right, seq.timestamps
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -660,6 +677,268 @@ def phase_slice_stereo(torch):
     return launches
 
 
+def _stereo_config():
+    from ergo_uvo_tpu_torch.config import StereoVOConfig, SurfConfig
+
+    return StereoVOConfig(surf=SurfConfig(min_hessian=60.0), max_keypoints=512, num_hypotheses=512)
+
+
+def _bench_rig(torch, seq):
+    import numpy as np
+
+    from ergo_uvo_tpu_torch.convert import stereo_rig_from_numpy
+
+    K32 = seq.K.astype(np.float32)
+    return stereo_rig_from_numpy(
+        dict(K_left=K32, K_right=K32, R_right=np.eye(3, dtype=np.float32),
+             t_right=np.asarray([-0.33, 0.0, 0.0], np.float32)), torch.device("cuda"))
+
+
+class _Stop(Exception):
+    """Raised by a chunk callback to end a streamed run, as a crash would."""
+
+
+def _host(tup):
+    return type(tup)(*(x.cpu().numpy() for x in tup))
+
+
+def _bit_equal(a, b):
+    import numpy as np
+
+    return all(np.array_equal(x, y) and x.dtype == y.dtype for x, y in zip(a, b))
+
+
+def _stream_phase(torch, phase, stream, bulk, state_example, out_type, per_frame, gt, valid_min):
+    """The checks and timings of a streaming phase.
+
+    ``stream(chunk, start=0, **kw)`` streams frames ``start..23`` in chunks of
+    ``chunk`` through the runner (``device=None``: the card); ``bulk(gen)``
+    is ``preprocess_frame`` then the bulk runner on all 24 frames.
+    """
+    import numpy as np
+
+    from ergo_uvo_tpu_torch.cli import _make_stream_ckpt_cb
+    from ergo_uvo_tpu_torch.features import top2_matcher
+    from ergo_uvo_tpu_torch.utils.checkpoint import load_stream_run
+
+    dev = torch.device("cuda")
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bulk_state, bulk_outs = bulk(gen())
+    torch.cuda.synchronize()
+    bulk_s = time.perf_counter() - t0
+
+    timings = []
+    top2_matcher.LAUNCHES = 0
+    t0 = time.perf_counter()
+    state, outs = stream(8, generator=gen(), timings=timings)
+    stream_s = time.perf_counter() - t0
+    launches = top2_matcher.LAUNCHES
+    check(launches == per_frame * N_FRAMES,
+          f"{phase}: kernel launched {launches} times in {N_FRAMES} frames, "
+          f"expected {per_frame} a frame")
+    check(all(isinstance(x, np.ndarray) for x in outs) and all(x.is_cuda for x in state),
+          f"{phase}: outputs are not numpy or the state is not on the card")
+    check(_bit_equal(outs, _host(bulk_outs)) and _bit_equal(_host(state), _host(bulk_state)),
+          f"{phase}: the streamed run differs from preprocess_frame then the bulk runner")
+
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    ckpt = str(WORK_DIR / f"{phase}.npz")
+    save = _make_stream_ckpt_cb(ckpt, every=1, n_real=N_FRAMES, chunk_size=7, start=0,
+                                n_segments=0)
+    write_ms = []
+
+    def crash_after_chunk_2(frames_done, *rest):
+        t = time.perf_counter()
+        save(frames_done, *rest)
+        write_ms.append(1e3 * (time.perf_counter() - t))
+        if frames_done == 14:
+            raise _Stop
+
+    try:
+        stream(7, generator=gen(), chunk_callback=crash_after_chunk_2)
+        check(False, f"{phase}: the checkpointed run did not stop after chunk 2")
+    except _Stop:
+        pass
+    done, ck_state, prefix, generator_state, meta = load_stream_run(
+        ckpt, state_example, out_type(*([np.zeros(0)] * len(out_type._fields))))
+    check(done == 14 and meta["n_segments"] == 2 and all(x.is_cuda for x in ck_state),
+          f"{phase}: checkpoint holds {done} frames, {meta}")
+    generator = torch.Generator(device=dev)
+    generator.set_state(generator_state)
+    resumed_state, tail = stream(5, start=done, generator=generator, state=ck_state)
+    resumed = out_type(*(np.concatenate([a, b]) for a, b in zip(prefix, tail)))
+    check(_bit_equal(resumed, outs) and _bit_equal(_host(resumed_state), _host(state)),
+          f"{phase}: the resumed run differs from the uninterrupted one")
+
+    for f in ("velocity", "R", "t"):
+        check(bool(np.isfinite(getattr(outs, f)).all()), f"{phase}: {f} has non-finite values")
+    pub, val = outs.published, outs.validity
+    check(not pub[0] and bool(pub[1:].all()), f"{phase}: published {pub.tolist()}")
+    valid_share = float(val[1:].mean())
+    check(valid_share >= valid_min, f"{phase}: validity on {valid_share:.2f} of frames")
+    rmse, speed = _velocity_check(np, outs._asdict(), gt)
+    steady_n = sum(n for n, _ in timings[1:])
+    steady_s = sum(t for _, t in timings[1:])
+    emit({"phase": phase, "frames": N_FRAMES, "height": 480, "width": 640,
+          "max_keypoints": 512, "num_hypotheses": 512, "chunk": 8,
+          "kernel_launches": launches, "launches_per_frame": launches / N_FRAMES,
+          "frames_per_second": steady_n / steady_s, "ms_per_frame": 1e3 * steady_s / steady_n,
+          "first_chunk_s": timings[0][1], "chunk_s": [t for _, t in timings],
+          "all_frames_per_second": N_FRAMES / stream_s,
+          "bulk_frames_per_second": N_FRAMES / bulk_s, "bulk_ms_per_frame": 1e3 * bulk_s / N_FRAMES,
+          "equal_to_bulk": True, "resumed_equal": True,
+          "checkpoint_write_ms": statistics.mean(write_ms), "checkpoint_writes_ms": write_ms,
+          "velocity_rmse": rmse, "mean_gt_speed": speed, "valid_share": valid_share,
+          "validity": val.astype(int).tolist()})
+    return launches
+
+
+def phase_stream_mono(torch, lens):
+    """The mono streaming runner on the frames of ``slice_undistorted``."""
+    import numpy as np
+
+    from ergo_uvo_tpu_torch.image import build_preprocess_plan, preprocess_frame
+    from ergo_uvo_tpu_torch.io import ArraySource
+    from ergo_uvo_tpu_torch.pipeline import (
+        MonoFrameOutput,
+        mono_vo_init_from,
+        run_mono_vo,
+        run_mono_vo_streaming,
+    )
+
+    lens_seq, lens_frames, K_lens = lens
+    cfg = _main_path_config()
+    plan = build_preprocess_plan(K_lens, np.array(LENS_DISTORTION), 640, 480, 640,
+                                 clahe_enabled=False, clip_limit=cfg.preprocessing.clip_limit)
+    frames = lens_frames.cpu().numpy()
+    ts, rg = lens_seq.timestamps, lens_seq.ranges
+
+    def stream(chunk, start=0, **kw):
+        source = ArraySource(frames[start:], ts[start:], ranges=rg[start:])
+        return run_mono_vo_streaming(source, plan, plan.new_K, cfg, chunk_size=chunk, **kw)
+
+    def bulk(gen):
+        return run_mono_vo(preprocess_frame(plan, lens_frames), ts, rg, plan.new_K, cfg, gen)
+
+    return _stream_phase(torch, "stream_mono", stream, bulk,
+                         mono_vo_init_from(cfg, device="cpu"), MonoFrameOutput, 1,
+                         lens_seq.velocities_prevcam, 0.7)
+
+
+def phase_stream_stereo(torch):
+    """The stereo streaming runner on the pairs of ``slice_stereo``."""
+    import numpy as np
+
+    from ergo_uvo_tpu_torch.image import build_preprocess_plan, preprocess_frame
+    from ergo_uvo_tpu_torch.io import ArraySource, make_stereo_sequence
+    from ergo_uvo_tpu_torch.pipeline import (
+        StereoFrameOutput,
+        run_stereo_vo,
+        run_stereo_vo_streaming,
+        stereo_vo_init_from,
+    )
+
+    dev = torch.device("cuda")
+    cfg = _stereo_config()
+    seq = make_stereo_sequence(n_frames=N_FRAMES, height=480, width=640, seed=2)
+    rig = _bench_rig(torch, seq)
+    plan_l, plan_r = (build_preprocess_plan(seq.K, np.zeros(4), 640, 480, 640, False,
+                                            cfg.preprocessing.clip_limit) for _ in range(2))
+
+    def stream(chunk, start=0, **kw):
+        source = ArraySource(seq.imgs_left[start:], seq.timestamps[start:],
+                             imgs_right=seq.imgs_right[start:])
+        return run_stereo_vo_streaming(source, plan_l, plan_r, rig, cfg, chunk_size=chunk, **kw)
+
+    def bulk(gen):
+        il = preprocess_frame(plan_l, torch.as_tensor(seq.imgs_left).to(dev))
+        ir = preprocess_frame(plan_r, torch.as_tensor(seq.imgs_right).to(dev))
+        return run_stereo_vo(il, ir, seq.timestamps, rig, cfg, gen)
+
+    return _stream_phase(torch, "stream_stereo", stream, bulk,
+                         stereo_vo_init_from(cfg, device="cpu"), StereoFrameOutput, 2,
+                         seq.velocities_prevcam, 0.6)
+
+
+# The main paths' configs as the CLI reads them (--params); the stereo
+# clip limit is its config's default, which a synthetic run does not use.
+CLI_PARAMS = {
+    "mono": "surf_params:\n  min_hessian: 60.0\n"
+            "tpu_params:\n  max_keypoints: 512\n  num_hypotheses: 512\n",
+    "stereo": "preprocessing:\n  clip_limit: 8.0\n"
+              "surf_params:\n  min_hessian: 60.0\n"
+              "tpu_params:\n  max_keypoints: 512\n  num_hypotheses: 512\n",
+}
+
+
+def phase_cli(torch, mode):
+    """``python -m ergo_uvo_tpu_torch.cli {mode} --synthetic 24`` in process,
+    with no ``--device``: the card."""
+    import math
+
+    import numpy as np
+
+    from ergo_uvo_tpu_torch import cli
+    from ergo_uvo_tpu_torch.config import load_vo_params
+    from ergo_uvo_tpu_torch.features import top2_matcher
+    from ergo_uvo_tpu_torch.pipeline import mono as mono_mod
+    from ergo_uvo_tpu_torch.pipeline import stereo as stereo_mod
+
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    params = WORK_DIR / f"{mode}_params.yaml"
+    params.write_text(CLI_PARAMS[mode])
+    cfg = load_vo_params(str(params), stereo=mode == "stereo")
+    check(cfg == (_main_path_config() if mode == "mono" else _stereo_config()),
+          f"cli_{mode}: --params does not give the main path's config")
+    out = WORK_DIR / f"cli_{mode}.jsonl"
+    out.unlink(missing_ok=True)
+    argv = [mode, "--synthetic", str(N_FRAMES), "--synthetic-size", "640x480",
+            "--params", str(params), "--chunk-size", "8", "--out", str(out)]
+
+    # Watch each chunk's outputs where the runner reads them back.
+    read_back_devices = []
+    module = mono_mod if mode == "mono" else stereo_mod
+    real_read_back = module.read_back
+
+    def watched_read_back(outs, device):
+        read_back_devices.append(sorted({str(x.device) for x in outs}))
+        return real_read_back(outs, device)
+
+    module.read_back = watched_read_back
+    stdout = io.StringIO()
+    top2_matcher.LAUNCHES = 0
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            cli.main(argv)
+        seconds = time.perf_counter() - t0
+    finally:
+        module.read_back = real_read_back
+    launches = top2_matcher.LAUNCHES
+    summary = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    with open(out) as f:
+        records = [json.loads(line) for line in f]
+    per_frame = 1 if mode == "mono" else 2
+    pub = np.array([r["published"] for r in records])
+    val = np.array([r["validity"] for r in records])
+    check(len(records) == N_FRAMES and summary["frames"] == N_FRAMES,
+          f"cli_{mode}: {len(records)} records, summary {summary}")
+    check(bool(pub[1:].all()) and np.array_equal(val[1:], pub[1:]),
+          f"cli_{mode}: published {pub.astype(int).tolist()}, valid {val.astype(int).tolist()}")
+    check(math.isfinite(summary["ate_m"]), f"cli_{mode}: ate_m {summary['ate_m']}")
+    check(summary["device"].startswith("cuda") and read_back_devices
+          and all(d == [summary["device"]] for d in read_back_devices),
+          f"cli_{mode}: ran on {summary['device']}, chunks read back from {read_back_devices}")
+    check(launches == per_frame * N_FRAMES,
+          f"cli_{mode}: kernel launched {launches} times in {N_FRAMES} frames")
+    emit({"phase": f"cli_{mode}", "argv": argv, "summary": summary, "kernel_launches": launches,
+          "launches_per_frame": launches / N_FRAMES, "seconds": seconds,
+          "chunks_read_back_from": read_back_devices})
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "ergo_uvo_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: ergo_uvo_tpu_torch/ not found beside this script; "
@@ -676,15 +955,26 @@ def main() -> int:
     seq = _mono_sequence()
     launches, slice_outs = phase_slice(torch, seq)
     plan, frames = phase_preprocess(torch, seq)
+    preprocessed_launches, lens = phase_slice_preprocessed(torch, seq, plan, frames)
     paths = {"slice": launches,
-             "slice_preprocessed": phase_slice_preprocessed(torch, seq, plan, frames),
+             "slice_preprocessed": preprocessed_launches,
              "slice_batched": phase_slice_batched(torch, seq, slice_outs),
-             "slice_stereo": phase_slice_stereo(torch)}
+             "slice_stereo": phase_slice_stereo(torch),
+             "stream_mono": phase_stream_mono(torch, lens),
+             "stream_stereo": phase_stream_stereo(torch),
+             "cli_mono": phase_cli(torch, "mono"),
+             "cli_stereo": phase_cli(torch, "stereo")}
     check(all(n > 0 for n in paths.values()), f"a path launched the kernel no time: {paths}")
+    frames_by_path = {"slice": N_FRAMES, "slice_preprocessed": N_FRAMES, "slice_batched": N_BATCHED,
+                      "slice_stereo": N_FRAMES, "stream_mono": N_FRAMES,
+                      "stream_stereo": N_FRAMES, "cli_mono": N_FRAMES, "cli_stereo": N_FRAMES}
     emit({"kernels": [{"name": "top2_distances", "route": "cuda", "source": KERNEL_SOURCE,
                        "replaces": KERNEL_REPLACES, "launches": launches,
                        "launches_per_frame": launches / N_FRAMES,
-                       "launches_by_path": paths, "max_abs_err": max_err,
+                       "launches_by_path": paths,
+                       "launches_per_frame_by_path": {k: n / frames_by_path[k]
+                                                      for k, n in paths.items()},
+                       "max_abs_err": max_err,
                        **{k: main_shape[k] for k in (
                            "shape", "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
                            "bound_by", "library", "library_ms", "library_device_ms")}}]})

@@ -1,0 +1,10 @@
+"""Trajectory evaluation of the port: ATE / RPE (a numpy copy of ``ergo_uvo_tpu/eval/``'s ``ate.py``)."""
+
+from ergo_uvo_tpu_torch.eval.ate import (  # noqa: F401
+    ate_rmse,
+    integrate_mono_poses,
+    integrate_mono_trajectory,
+    rpe_rmse,
+    umeyama_alignment,
+    velocity_rmse,
+)

@@ -10,12 +10,14 @@ from ergo_uvo_tpu_torch.pipeline.mono import (  # noqa: F401
     mono_vo_step_with_features,
     run_mono_vo,
     run_mono_vo_batched_features,
+    run_mono_vo_streaming,
 )
 from ergo_uvo_tpu_torch.pipeline.stereo import (  # noqa: F401
     StereoFrameOutput,
     StereoRig,
     StereoVOState,
     run_stereo_vo,
+    run_stereo_vo_streaming,
     stereo_vo_init,
     stereo_vo_init_from,
     stereo_vo_step,

@@ -9,21 +9,26 @@ expressed as masked selection:
   velocity + validity, state shift prev <- curr.
 
 The JAX package scans the step with ``lax.scan``; :func:`run_mono_vo` is a
-Python loop over :func:`mono_vo_step`.  Apart from the method switch in
+Python loop over :func:`mono_vo_step`, and :func:`run_mono_vo_streaming` a
+loop over the chunks of a frame source.  Apart from the method switch in
 ``estimate_relative_pose`` (two ``.item()`` per frame) the step stays on the
 device.  The JAX package's ``optimization_barrier`` calls are fusion hints
-with no eager meaning and are dropped.
+with no eager meaning and are dropped.  Under
+:func:`~ergo_uvo_tpu_torch.utils.debug.nan_guard` the runners check every
+frame's outputs.
 
 The entry points (:func:`mono_vo_init`, :func:`mono_vo_init_from`,
-:func:`run_mono_vo`, :func:`run_mono_vo_batched_features`) run on the card:
-``device=None`` means ``"cuda"`` and raises where there is none.  The CPU is
-used only when the caller passes ``device="cpu"``.  The step functions run
-where their tensors lie.
+:func:`run_mono_vo`, :func:`run_mono_vo_batched_features`,
+:func:`run_mono_vo_streaming`) run on the card: ``device=None`` means
+``"cuda"`` and raises where there is none.  The CPU is used only when the
+caller passes ``device="cpu"``.  The step functions run where their tensors
+lie.
 """
 
 from __future__ import annotations
 
 import functools
+import time
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -42,6 +47,8 @@ from ergo_uvo_tpu_torch.geometry.triangulation import (
     filter_3d_points,
     triangulate_points,
 )
+from ergo_uvo_tpu_torch.image.preprocess import PreprocessPlan, preprocess_frame
+from ergo_uvo_tpu_torch.utils.debug import check_frame
 
 # sampler(frame, method, mask, num_hypotheses, set_size) -> (idx, sets_valid)
 FrameSampler = Callable[[int, str, torch.Tensor, int, int], tuple]
@@ -256,6 +263,20 @@ def _bind_frame(sampler: FrameSampler | None, i: int) -> MethodSampler | None:
     return None if sampler is None else functools.partial(sampler, i)
 
 
+def _step_frames(state, imgs, timestamps, ranges, K, cfg, generator, sampler, first=0):
+    """:func:`mono_vo_step` over the frames; ``first`` is the global index of
+    ``imgs[0]``, which the sampler and the nan guard see."""
+    outs = []
+    for i in range(imgs.shape[0]):
+        state, out = mono_vo_step(
+            state, imgs[i], timestamps[i], ranges[i], K, cfg, generator,
+            _bind_frame(sampler, first + i),
+        )
+        check_frame(out, first + i)
+        outs.append(out)
+    return state, MonoFrameOutput(*(torch.stack(field) for field in zip(*outs)))
+
+
 def run_mono_vo(
     imgs: torch.Tensor | np.ndarray,
     timestamps: torch.Tensor | np.ndarray,
@@ -282,14 +303,7 @@ def run_mono_vo(
     imgs, timestamps, ranges, K, state = _run_inputs(
         "run_mono_vo", imgs, timestamps, ranges, K, cfg, generator, state, device
     )
-    outs = []
-    for i in range(imgs.shape[0]):
-        state, out = mono_vo_step(
-            state, imgs[i], timestamps[i], ranges[i], K, cfg, generator, _bind_frame(sampler, i)
-        )
-        outs.append(out)
-    stacked = MonoFrameOutput(*(torch.stack(field) for field in zip(*outs)))
-    return state, stacked
+    return _step_frames(state, imgs, timestamps, ranges, K, cfg, generator, sampler)
 
 
 def run_mono_vo_batched_features(
@@ -326,6 +340,105 @@ def run_mono_vo_batched_features(
             state, Keypoints(*(f[i] for f in kpts)), descs[i], timestamps[i], ranges[i],
             K, cfg, generator, _bind_frame(sampler, i),
         )
+        check_frame(out, i)
         outs.append(out)
     stacked = MonoFrameOutput(*(torch.stack(field) for field in zip(*outs)))
     return state, stacked
+
+
+def check_plan_device(name: str, plan: PreprocessPlan, device: torch.device) -> None:
+    """Raise if a preprocess plan's tensors lie elsewhere than ``device``."""
+    if plan.grid.device != device:
+        raise ValueError(f"{name} is on {plan.grid.device}, the run is on {device}")
+
+
+def upload(x, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``.  To the card it goes from pinned memory
+    without a wait, so a chunk's inputs add no host sync of their own."""
+    x = torch.as_tensor(x)
+    if device.type == "cuda" and x.device.type == "cpu":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x.to(device)
+
+
+def read_back(outs: NamedTuple, device: torch.device) -> NamedTuple:
+    """A chunk's stacked outputs as numpy: every field is copied to the host,
+    then the host waits once, so the chunk's one read-back is its one sync."""
+    if device.type == "cuda":
+        host = [x.to("cpu", non_blocking=True) for x in outs]
+        torch.cuda.synchronize(device)
+    else:
+        host = list(outs)
+    return type(outs)(*(x.numpy() for x in host))
+
+
+def concat_chunks(chunks: list) -> NamedTuple:
+    """The chunks' outputs stacked over all streamed frames (numpy)."""
+    if not chunks:
+        raise ValueError("source yielded no complete chunks")
+    return type(chunks[0])(*(np.concatenate(field) for field in zip(*chunks)))
+
+
+def run_mono_vo_streaming(
+    source,
+    plan: PreprocessPlan,
+    K: torch.Tensor | np.ndarray,
+    cfg: MonoVOConfig,
+    generator: torch.Generator,
+    chunk_size: int = 16,
+    state: MonoVOState | None = None,
+    chunk_callback=None,
+    timings: list | None = None,
+    sampler: FrameSampler | None = None,
+    device: torch.device | str | None = None,
+):
+    """Stream a :class:`~ergo_uvo_tpu_torch.io.sequence.FrameSource` through mono VO.
+
+    A host loop over ``source.batches(chunk_size)``: each chunk's frames are
+    preprocessed in one :func:`preprocess_frame` call (which gives each frame
+    the bits it gets alone), then :func:`mono_vo_step` runs frame by frame.
+    One ``generator`` runs through the whole stream, and ``sampler`` sees the
+    global frame index, so with the same generator seed the outputs equal
+    ``preprocess_frame`` then :func:`run_mono_vo` bit for bit, whatever the
+    chunk size.  A trailing partial chunk is not streamed.  Returns
+    (final_state, outputs): the state on ``device``, the outputs a
+    :class:`MonoFrameOutput` of numpy arrays stacked over the streamed frames.
+
+    `chunk_callback(frames_done, state, chunk_out, generator_state)` fires
+    after every chunk with the carried VO state, THIS chunk's outputs (numpy,
+    the new frames only, so a checkpointer appends O(chunk) bytes) and
+    ``generator.get_state()`` for the next chunk — what a crash-resumable
+    checkpoint needs (``utils.checkpoint.save_stream_head`` /
+    ``append_stream_segment``).
+
+    `timings` (optional list) collects one `(n_frames, seconds)` entry per
+    chunk, from the chunk's upload to the end of its read-back; the first
+    entry also holds the CUDA context, the kernel's build or load and the
+    allocator's warm-up.  A chunk reads back from the card once.
+
+    The plan's tensors, a ``state`` and the generator must lie on ``device``
+    (``None``: the card).  Raises ``ValueError`` when the source yields no
+    complete chunk.
+    """
+    device = resolve_device(device)
+    check_plan_device("plan", plan, device)
+    K = upload(K, device)
+    chunks = []
+    frames_done = 0
+    for batch in source.batches(chunk_size):
+        t0 = time.perf_counter()
+        n = len(batch.imgs)
+        imgs = preprocess_frame(plan, upload(batch.imgs, device).float())
+        ranges = batch.ranges if batch.ranges is not None else np.ones(n, np.float32)
+        imgs, tss, rgs, K, state = _run_inputs(
+            "run_mono_vo_streaming", imgs, upload(batch.timestamps, device),
+            upload(ranges, device), K, cfg, generator, state, device,
+        )
+        state, outs = _step_frames(state, imgs, tss, rgs, K, cfg, generator, sampler, frames_done)
+        chunks.append(read_back(outs, device))
+        if timings is not None:
+            timings.append((n, time.perf_counter() - t0))
+        frames_done += n
+        if chunk_callback is not None:
+            chunk_callback(frames_done, state, chunks[-1], generator.get_state())
+    return state, concat_chunks(chunks)

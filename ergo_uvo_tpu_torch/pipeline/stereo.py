@@ -18,18 +18,22 @@ detections >= MIN_NUM_FEATURES, stereo and triangular matches > MIN,
 
 Every gate is a mask, so the step has no data-dependent branch and reads
 nothing back to the host.  The JAX package scans the step with ``lax.scan``;
-:func:`run_stereo_vo` is a Python loop over :func:`stereo_vo_step`.  Both
-matches of a frame go through ``match_descriptors`` and so, on the card,
-through the top-2 kernel: two launches a frame.
+:func:`run_stereo_vo` is a Python loop over :func:`stereo_vo_step`, and
+:func:`run_stereo_vo_streaming` a loop over the chunks of a paired frame
+source, which reads back once a chunk.  Both matches of a frame go through
+``match_descriptors`` and so, on the card, through the top-2 kernel: two
+launches a frame.
 
 The entry points (:func:`stereo_vo_init`, :func:`stereo_vo_init_from`,
-:func:`run_stereo_vo`) run on the card: ``device=None`` means ``"cuda"`` and
-raises where there is none.  The step runs where its tensors lie.
+:func:`run_stereo_vo`, :func:`run_stereo_vo_streaming`) run on the card:
+``device=None`` means ``"cuda"`` and raises where there is none.  The step
+runs where its tensors lie.
 """
 
 from __future__ import annotations
 
 import functools
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -43,7 +47,15 @@ from ergo_uvo_tpu_torch.features.frontend import detect_and_describe
 from ergo_uvo_tpu_torch.features.matcher import match_descriptors
 from ergo_uvo_tpu_torch.geometry.camera import projection_matrix
 from ergo_uvo_tpu_torch.geometry.triangulation import filter_3d_points, triangulate_points
-from ergo_uvo_tpu_torch.pipeline.mono import FrameSampler
+from ergo_uvo_tpu_torch.image.preprocess import PreprocessPlan, preprocess_frame
+from ergo_uvo_tpu_torch.pipeline.mono import (
+    FrameSampler,
+    check_plan_device,
+    concat_chunks,
+    read_back,
+    upload,
+)
+from ergo_uvo_tpu_torch.utils.debug import check_frame
 
 
 class StereoRig(NamedTuple):
@@ -239,27 +251,99 @@ def run_stereo_vo(
     there.  A ``rig``, ``state`` or ``generator`` on another device raises.
     """
     device = resolve_device(device)
+    imgs_l, imgs_r, timestamps, state = _stereo_inputs(
+        "run_stereo_vo", imgs_l, imgs_r, timestamps, rig, cfg, generator, state, device
+    )
+    return _step_pairs(state, imgs_l, imgs_r, timestamps, rig, cfg, generator, sampler)
+
+
+def _stereo_inputs(name, imgs_l, imgs_r, timestamps, rig, cfg, generator, state, device):
+    """Move a runner's frames to its device and check what the caller brought."""
     imgs_l, imgs_r, timestamps = (
         torch.as_tensor(x).to(device) for x in (imgs_l, imgs_r, timestamps)
     )
     if generator is not None and resolve_device(generator.device) != device:
-        raise ValueError(f"generator is on {generator.device}, run_stereo_vo runs on {device}")
+        raise ValueError(f"generator is on {generator.device}, {name} runs on {device}")
     if state is None:
         state = stereo_vo_init_from(cfg, imgs_l.dtype, device)
     for label, tup in (("rig", rig), ("state", state)):
-        for name, value in tup._asdict().items():
+        for field, value in tup._asdict().items():
             if value.device != device:
-                raise ValueError(
-                    f"{label}.{name} is on {value.device}, run_stereo_vo runs on {device}"
-                )
+                raise ValueError(f"{label}.{field} is on {value.device}, {name} runs on {device}")
+    return imgs_l, imgs_r, timestamps, state
+
+
+def _step_pairs(state, imgs_l, imgs_r, timestamps, rig, cfg, generator, sampler, first=0):
+    """:func:`stereo_vo_step` over the pairs; ``first`` is the global index of
+    the first pair, which the sampler and the nan guard see."""
     outs = []
     for i in range(imgs_l.shape[0]):
         step_sampler = None
         if sampler is not None:
-            step_sampler = functools.partial(sampler, i, "pnp")
+            step_sampler = functools.partial(sampler, first + i, "pnp")
         state, out = stereo_vo_step(
             state, imgs_l[i], imgs_r[i], timestamps[i], rig, cfg, generator, step_sampler
         )
+        check_frame(out, first + i)
         outs.append(out)
-    stacked = StereoFrameOutput(*(torch.stack(field) for field in zip(*outs)))
-    return state, stacked
+    return state, StereoFrameOutput(*(torch.stack(field) for field in zip(*outs)))
+
+
+def run_stereo_vo_streaming(
+    source,
+    plan_l: PreprocessPlan,
+    plan_r: PreprocessPlan,
+    rig: StereoRig,
+    cfg: StereoVOConfig,
+    generator: torch.Generator,
+    chunk_size: int = 16,
+    state: StereoVOState | None = None,
+    chunk_callback=None,
+    timings: list | None = None,
+    sampler: FrameSampler | None = None,
+    device: torch.device | str | None = None,
+):
+    """Stream synced L/R frame batches through stereo VO chunk by chunk.
+
+    The streaming analogue of the reference's ApproximateTime-synced stereo
+    loop (visual_odometry.h:766-774, :526-740): a host loop pulls fixed-size
+    paired batches from a paired source
+    (:class:`~ergo_uvo_tpu_torch.io.sequence.JpegPairSource`, or an
+    ``ArraySource`` with ``imgs_right``), preprocesses each eye's frames in
+    one call under its own plan, and runs :func:`stereo_vo_step` pair by
+    pair.  The chunk reads back once, at its end: the step has no host sync
+    of its own.  Returns (final_state, outputs), the outputs a
+    :class:`StereoFrameOutput` of numpy arrays stacked over the streamed
+    frames; with the same generator seed they equal ``preprocess_frame``
+    then :func:`run_stereo_vo` bit for bit, whatever the chunk size.
+
+    `chunk_callback(frames_done, state, chunk_out, generator_state)`,
+    `timings`, `sampler` and `device` — see
+    :func:`ergo_uvo_tpu_torch.pipeline.mono.run_mono_vo_streaming`.
+    """
+    device = resolve_device(device)
+    check_plan_device("plan_l", plan_l, device)
+    check_plan_device("plan_r", plan_r, device)
+    chunks = []
+    frames_done = 0
+    for batch in source.batches(chunk_size):
+        if batch.imgs_right is None:
+            raise ValueError("stereo streaming needs a paired source "
+                             "(FrameBatch.imgs_right is None)")
+        t0 = time.perf_counter()
+        n = len(batch.imgs)
+        imgs_l = preprocess_frame(plan_l, upload(batch.imgs, device).float())
+        imgs_r = preprocess_frame(plan_r, upload(batch.imgs_right, device).float())
+        imgs_l, imgs_r, tss, state = _stereo_inputs(
+            "run_stereo_vo_streaming", imgs_l, imgs_r, upload(batch.timestamps, device),
+            rig, cfg, generator, state, device,
+        )
+        state, outs = _step_pairs(state, imgs_l, imgs_r, tss, rig, cfg, generator, sampler,
+                                  frames_done)
+        chunks.append(read_back(outs, device))
+        if timings is not None:
+            timings.append((n, time.perf_counter() - t0))
+        frames_done += n
+        if chunk_callback is not None:
+            chunk_callback(frames_done, state, chunks[-1], generator.get_state())
+    return state, concat_chunks(chunks)

@@ -1,0 +1,15 @@
+"""Auxiliary subsystems of the port (SURVEY.md §5): checkpointing, profiling,
+records, numerical checks.  ``utils/visualize.py`` is not ported yet."""
+
+from ergo_uvo_tpu_torch.utils.checkpoint import (  # noqa: F401
+    restore_state,
+    save_state,
+)
+from ergo_uvo_tpu_torch.utils.debug import assert_finite, nan_guard  # noqa: F401
+from ergo_uvo_tpu_torch.utils.profiling import (  # noqa: F401
+    FrameRateCounter,
+    stage,
+    time_fn,
+    trace,
+)
+from ergo_uvo_tpu_torch.utils.records import RunRecorder  # noqa: F401

@@ -1,19 +1,21 @@
-"""The port's mono slice against JAX ``run_mono_vo`` (CPU), raw and on
-preprocessed frames, the batched-features runner, the state hand-over
-between the packages, the host-only copies, the entry points' default
-device, and the port's freedom from JAX.
+"""The port's mono slice against JAX ``run_mono_vo`` (CPU), raw, on
+preprocessed frames and streamed, the batched-features runner, the state
+hand-over between the packages, the host-only copies, the entry points'
+default device, and the port's freedom from JAX.
 
-The slice runs under the config and sequence of
-tests/test_pipeline.py:219-227 (SURF, min_hessian 60, 128 keypoints, 64
-hypotheses, LMEDS; 8 frames of 160x120 from ``make_mono_sequence(seed=3)``),
-so the JAX scan compiled here is the one that test compiles.  Both packages
-draw the same minimal sets: the port's sampler calls the JAX package's
-``sample_minimal_sets`` with the keys JAX derives, ``keys = split(key, 8)``
-and ``k_e, k_h = split(keys[i])`` for frame i.
+The slice runs under the config of tests/test_pipeline.py:219-227 (SURF,
+min_hessian 60, 128 keypoints, 64 hypotheses, LMEDS) on 8 frames of 160x128
+from ``make_mono_sequence(seed=3)``: raw and preprocessed frames then have
+one shape, so the file's two JAX ``run_mono_vo`` runs go through one jitted
+call, which traces and compiles once.
+Both packages draw the same minimal sets: the port's sampler calls the JAX
+package's ``sample_minimal_sets`` with the keys JAX derives,
+``keys = split(key, 8)`` and ``k_e, k_h = split(keys[i])`` for frame i.
 """
 
 import ast
 import dataclasses
+import inspect
 from pathlib import Path
 
 import jax
@@ -22,31 +24,46 @@ import numpy as np
 import pytest
 import torch
 
+import ergo_uvo_tpu.cli as jcli
 import ergo_uvo_tpu.config as jconfig
+import ergo_uvo_tpu.eval.ate as jate
+import ergo_uvo_tpu.io.native as jnative
+import ergo_uvo_tpu.io.sequence as jsequence
 import ergo_uvo_tpu.io.synthetic as jsynthetic
+import ergo_uvo_tpu.utils.records as jrecords
 from ergo_uvo_tpu.estimation.sampling import sample_minimal_sets as j_sample
 from ergo_uvo_tpu.features.frontend import detect_and_describe as j_detect_and_describe
 from ergo_uvo_tpu.image import build_preprocess_plan as j_build_plan
 from ergo_uvo_tpu.image import preprocess_frame as j_preprocess_frame
 from ergo_uvo_tpu.pipeline import run_mono_vo as j_run_mono_vo
+import ergo_uvo_tpu_torch.cli as tcli
 import ergo_uvo_tpu_torch.config as tconfig
+import ergo_uvo_tpu_torch.eval.ate as tate
+import ergo_uvo_tpu_torch.io.native as tnative
+import ergo_uvo_tpu_torch.io.sequence as tsequence
 import ergo_uvo_tpu_torch.io.synthetic as tsynthetic
+import ergo_uvo_tpu_torch.utils.records as trecords
 from ergo_uvo_tpu_torch.convert import (
     mono_state_from_numpy,
     mono_state_to_numpy,
     stereo_rig_from_numpy,
 )
 from ergo_uvo_tpu_torch.image import build_preprocess_plan, preprocess_frame
+from ergo_uvo_tpu_torch.io.sequence import ArraySource
 from ergo_uvo_tpu_torch.pipeline import (
+    MonoFrameOutput,
     mono_vo_init,
     mono_vo_init_from,
     mono_vo_step,
     run_mono_vo,
     run_mono_vo_batched_features,
+    run_mono_vo_streaming,
     run_stereo_vo,
+    run_stereo_vo_streaming,
     stereo_vo_init,
     stereo_vo_init_from,
 )
+from ergo_uvo_tpu_torch.utils.checkpoint import load_stream_run, restore_state
 
 ROOT_DIR = Path(__file__).resolve().parent.parent
 PORT_DIR = ROOT_DIR / "ergo_uvo_tpu_torch"
@@ -54,6 +71,10 @@ CFG_KW = dict(surf=dict(min_hessian=60.0), max_keypoints=128, num_hypotheses=64)
 N_FRAMES = 8
 KEY = jax.random.PRNGKey(0)
 MID = 3  # the step test starts from the JAX state after this frame
+LENS_DISTORTION = np.array([-0.05, 0.01, 0.0, 0.0])  # the JAX package's benchmark plan
+# The file's two JAX runs (raw and preprocessed frames, one shape) share this
+# callable, so the second reuses the first's executable.
+j_run_mono_vo_jit = jax.jit(j_run_mono_vo, static_argnames="cfg")
 
 
 def cfg_of(module):
@@ -84,13 +105,13 @@ def frame_sampler(frame, method, mask, num_hypotheses, set_size):
 
 @pytest.fixture(scope="module")
 def seq():
-    return tsynthetic.make_mono_sequence(n_frames=N_FRAMES, height=120, width=160,
+    return tsynthetic.make_mono_sequence(n_frames=N_FRAMES, height=128, width=160,
                                          dt=0.25, seed=3)
 
 
 @pytest.fixture(scope="module")
 def jax_outs(seq):
-    _, outs = j_run_mono_vo(
+    _, outs = j_run_mono_vo_jit(
         jnp.asarray(seq.imgs_left), jnp.asarray(seq.timestamps), jnp.asarray(seq.ranges),
         jnp.asarray(seq.K), cfg_of(jconfig), KEY)
     return jax.tree.map(np.asarray, outs)
@@ -144,41 +165,75 @@ def test_batched_features_runner_matches_run_mono_vo(seq):
         assert torch.equal(x, y)
 
 
-def test_preprocessed_slice_matches_jax():
+@pytest.fixture(scope="module")
+def jax_preprocessed(seq):
+    """JAX's ``preprocess_frame`` then JAX ``run_mono_vo`` with
+    ``K = plan.new_K`` under the benchmark's plan (distortion
+    [-0.05, 0.01, 0, 0], CLAHE on, clip 3.0): (plan, frames, outputs)."""
+    h, w = seq.imgs_left.shape[1:]
+    jplan = j_build_plan(seq.K, LENS_DISTORTION, w, h, w, True, 3.0)
+    jimgs = jax.vmap(lambda im: j_preprocess_frame(jplan, im))(jnp.asarray(seq.imgs_left))
+    _, jouts = j_run_mono_vo_jit(jimgs, jnp.asarray(seq.timestamps), jnp.asarray(seq.ranges),
+                                 jplan.new_K, cfg_of(jconfig), KEY)
+    return jplan, np.asarray(jimgs), jax.tree.map(np.asarray, jouts)
+
+
+def port_plan(seq):
+    h, w = seq.imgs_left.shape[1:]
+    return build_preprocess_plan(seq.K, LENS_DISTORTION, w, h, w, True, 3.0, device="cpu")
+
+
+def test_preprocessed_slice_matches_jax(seq, jax_preprocessed):
     """The mono path as the JAX package's benchmark runs it: the port's
     ``preprocess_frame`` then ``run_mono_vo`` with ``K = plan.new_K``,
     against JAX's ``preprocess_frame`` then JAX ``run_mono_vo``, under the
-    benchmark's plan (distortion [-0.05, 0.01, 0, 0], CLAHE on, clip 3.0).
+    benchmark's plan.
 
-    8 frames of 160x128: CLAHE's tiles are then 20x16, even, as the 80x60
-    tiles of the benchmark's 640x480 are, so JAX takes the path it takes
-    there, and the port's one path rounds as that one does: the preprocessed
-    frames are equal bit for bit.  (At 160x120 the tiles are 20x15 and JAX
-    takes its other path, whose weights round differently: the frames then
-    differ by up to 6e-5 gray levels, which moves one 3-D point across a
-    gate on two frames and the scale factor, a median, by 6%.)  The frames'
-    outputs hold the same contract as the raw slice."""
-    seq = tsynthetic.make_mono_sequence(n_frames=N_FRAMES, height=128, width=160,
-                                        dt=0.25, seed=3)
-    h, w = seq.imgs_left.shape[1:]
-    dist = np.array([-0.05, 0.01, 0.0, 0.0])
-    jplan = j_build_plan(seq.K, dist, w, h, w, True, 3.0)
-    tplan = build_preprocess_plan(seq.K, dist, w, h, w, True, 3.0, device="cpu")
-    jimgs = jax.vmap(lambda im: j_preprocess_frame(jplan, im))(jnp.asarray(seq.imgs_left))
+    At 160x128 CLAHE's tiles are 20x16, even, as the 80x60 tiles of the
+    benchmark's 640x480 are, so JAX takes the path it takes there, and the
+    port's one path rounds as that one does: the preprocessed frames are
+    equal bit for bit.  (At 160x120 the tiles are 20x15 and JAX takes its
+    other path, whose weights round differently: the frames then differ by
+    up to 6e-5 gray levels, which moves one 3-D point across a gate on two
+    frames and the scale factor, a median, by 6%.)  The frames' outputs hold
+    the same contract as the raw slice."""
+    jplan, jimgs, jouts = jax_preprocessed
+    tplan = port_plan(seq)
     timgs = preprocess_frame(tplan, t(seq.imgs_left))
-    np.testing.assert_array_equal(timgs.numpy(), np.asarray(jimgs))
+    np.testing.assert_array_equal(timgs.numpy(), jimgs)
     np.testing.assert_array_equal(tplan.new_K.numpy(), np.asarray(jplan.new_K))
     assert np.abs(timgs.numpy() - seq.imgs_left).mean() > 5.0  # CLAHE did its work
 
-    _, jouts = j_run_mono_vo(jimgs, jnp.asarray(seq.timestamps), jnp.asarray(seq.ranges),
-                             jplan.new_K, cfg_of(jconfig), KEY)
-    jouts = jax.tree.map(np.asarray, jouts)
     _, outs = run_mono_vo(timgs, t(seq.timestamps), t(seq.ranges), tplan.new_K,
                           cfg_of(tconfig), sampler=frame_sampler, device="cpu")
     port = type(outs)(*(x.numpy() for x in outs))
     assert not jouts.published[0] and jouts.published[1:].all()
     assert_frames_match(port, jouts)
     assert np.isfinite(port.velocity).all()
+
+
+def test_streaming_matches_jax(seq, jax_preprocessed):
+    """The port's ``run_mono_vo_streaming`` on the raw frames (an
+    ``ArraySource``, chunks of 4, the port's plan), its sampler fed the
+    global frame index, against the JAX run of ``jax_preprocessed``, under
+    the contract of tests/test_pipeline.py:230-241 (discrete outputs exact,
+    counts within 2, velocity atol 5e-3, scale factor rtol 1e-2).  The
+    outputs come back as numpy, every frame of the 8 streamed."""
+    _, _, jouts = jax_preprocessed
+    tplan = port_plan(seq)
+    calls = []
+
+    def sampler(frame, *args):
+        calls.append(frame)
+        return frame_sampler(frame, *args)
+
+    source = ArraySource(seq.imgs_left, seq.timestamps, ranges=seq.ranges)
+    _, outs = run_mono_vo_streaming(source, tplan, tplan.new_K, cfg_of(tconfig),
+                                    torch.Generator().manual_seed(0), chunk_size=4,
+                                    sampler=sampler, device="cpu")
+    assert all(isinstance(x, np.ndarray) for x in outs) and outs.velocity.shape == (N_FRAMES, 3)
+    assert sorted(set(calls)) == list(range(N_FRAMES))  # global indices across the chunks
+    assert_frames_match(outs, jouts)
 
 
 def test_step_from_jax_state_matches_jax(seq, jax_outs):
@@ -217,7 +272,19 @@ def tiny_seq():
     return tsynthetic.make_mono_sequence(n_frames=2, height=48, width=64, dt=0.25, seed=3)
 
 
-def _entry_points(tiny_seq):
+@pytest.fixture(scope="module")
+def saved_files(tiny_seq, tmp_path_factory):
+    """A stream checkpoint and a saved state, written on the CPU."""
+    from ergo_uvo_tpu_torch.utils.checkpoint import save_state, save_stream_head
+
+    root = tmp_path_factory.mktemp("entry_points")
+    state = mono_vo_init_from(cfg_of(tconfig), device="cpu")
+    save_stream_head(str(root / "run.npz"), 0, state, torch.Generator().get_state(), 0, 2, 2)
+    save_state(str(root / "state.pt"), state)
+    return root
+
+
+def _entry_points(tiny_seq, root):
     """Every entry point of the port, called without ``device``."""
     cfg = cfg_of(tconfig)
     scfg = tconfig.StereoVOConfig(surf=cfg.surf, max_keypoints=cfg.max_keypoints,
@@ -229,6 +296,12 @@ def _entry_points(tiny_seq):
              R_right=np.eye(3, dtype=np.float32),
              t_right=np.asarray([-0.33, 0.0, 0.0], np.float32)), "cpu")
     stereo_np = (tiny_seq.imgs_left, tiny_seq.imgs_left, tiny_seq.timestamps, rig)
+    mono_src = ArraySource(tiny_seq.imgs_left, tiny_seq.timestamps, ranges=tiny_seq.ranges)
+    stereo_src = ArraySource(tiny_seq.imgs_left, tiny_seq.timestamps,
+                             imgs_right=tiny_seq.imgs_left)
+    plan = build_preprocess_plan(tiny_seq.K, np.zeros(4), 64, 48, 64, False, 3.0, device="cpu")
+    example = mono_vo_init_from(cfg, device="cpu")
+    outs_example = MonoFrameOutput(*([np.zeros(0)] * len(MonoFrameOutput._fields)))
     return {
         "mono_vo_init": lambda: mono_vo_init(),
         "mono_vo_init_from": lambda: mono_vo_init_from(cfg),
@@ -240,6 +313,14 @@ def _entry_points(tiny_seq):
         "run_stereo_vo": lambda: run_stereo_vo(*stereo_np, scfg),
         "build_preprocess_plan": lambda: build_preprocess_plan(
             tiny_seq.K, np.zeros(4), 64, 48, 64, True, 3.0),
+        "run_mono_vo_streaming": lambda: run_mono_vo_streaming(
+            mono_src, plan, tiny_seq.K, cfg, torch.Generator(), chunk_size=2),
+        "run_stereo_vo_streaming": lambda: run_stereo_vo_streaming(
+            stereo_src, plan, plan, rig, scfg, torch.Generator(), chunk_size=2),
+        "load_stream_run": lambda: load_stream_run(str(root / "run.npz"), example, outs_example),
+        "restore_state": lambda: restore_state(str(root / "state.pt"), example),
+        "cli": lambda: tcli.main(["mono", "--synthetic", "2", "--synthetic-size", "64x48",
+                                  "--out", str(root / "cli.jsonl")]),
     }
 
 
@@ -247,15 +328,18 @@ def _entry_points(tiny_seq):
 @pytest.mark.parametrize("name", [
     "mono_vo_init", "mono_vo_init_from", "run_mono_vo[numpy]", "run_mono_vo[tensors]",
     "run_mono_vo_batched_features", "stereo_vo_init", "stereo_vo_init_from", "run_stereo_vo",
-    "build_preprocess_plan"])
-def test_entry_points_default_to_the_card(tiny_seq, monkeypatch, name):
-    """With no ``device`` the entry points ask for the card and, where there
-    is none, raise and name ``device="cpu"``; they never carry on on the CPU
-    by themselves.  (torch.cuda.is_available is pinned to False so that the
-    test says the same on a machine with a card.)"""
+    "build_preprocess_plan", "run_mono_vo_streaming", "run_stereo_vo_streaming",
+    "load_stream_run", "restore_state", "cli"])
+def test_entry_points_default_to_the_card(tiny_seq, saved_files, monkeypatch, name):
+    """With no ``device`` (no ``--device`` for the CLI) the entry points ask
+    for the card and, where there is none, raise and name ``device="cpu"``;
+    they never carry on on the CPU by themselves.  (torch.cuda.is_available
+    is pinned to False so that the test says the same on a machine with a
+    card.)"""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
-        _entry_points(tiny_seq)[name]()
+        _entry_points(tiny_seq, saved_files)[name]()
+    assert not (saved_files / "cli.jsonl").exists()
 
 
 @pytest.mark.fast
@@ -334,9 +418,13 @@ def test_run_mono_vo_refuses_a_state_on_another_device(tiny_seq):
 
 @pytest.mark.fast
 def test_host_copies_equal_their_originals():
-    """(c) config.py and io/synthetic.py are copies: every dataclass with the
-    same fields and defaults, the same constants and derived descriptor_dim,
-    and the same sequence arrays for one seed."""
+    """(c) The host-only copies: config.py and io/synthetic.py hold every
+    dataclass with the same fields and defaults, the same constants and
+    derived descriptor_dim, and the same sequence arrays for one seed; the
+    copies of io/sequence.py, io/native/, eval/ate.py, utils/records.py and
+    the CLI's host helpers have the original's names and signatures (their
+    outputs are held to the originals by tests/test_torch_streaming.py and
+    tests/test_torch_cli.py)."""
     classes = [name for name, obj in vars(jconfig).items()
                if dataclasses.is_dataclass(obj) and isinstance(obj, type)]
     assert {"MonoVOConfig", "SurfConfig", "RansacConfig"} <= set(classes)
@@ -359,6 +447,26 @@ def test_host_copies_equal_their_originals():
             assert getattr(b, name) is None
         else:
             np.testing.assert_array_equal(getattr(b, name), getattr(a, name), err_msg=name)
+    copies = [
+        (jsequence, tsequence, ["FrameBatch", "FrameSource", "JpegDirectorySource",
+                                "JpegPairSource", "ArraySource"]),
+        (jnative, tnative, ["available", "build_error", "decode_jpeg", "demosaic_bggr",
+                            "JpegLoader"]),
+        (jate, tate, ["umeyama_alignment", "ate_rmse", "rpe_rmse", "velocity_rmse",
+                      "integrate_mono_poses", "integrate_mono_trajectory"]),
+        (jrecords, trecords, ["RunRecorder"]),
+        (jcli, tcli, ["_list_frames", "_parse_size", "_load_timestamps", "_pair_by_timestamp",
+                      "_outs_example"]),
+    ]
+    for jmod, tmod, names in copies:
+        for name in names:
+            jobj, tobj = getattr(jmod, name), getattr(tmod, name)
+            assert str(inspect.signature(tobj)) == str(inspect.signature(jobj)), name
+            for meth in ("batches", "record_frame", "close", "__iter__"):
+                if hasattr(jobj, meth):
+                    assert (str(inspect.signature(getattr(tobj, meth)))
+                            == str(inspect.signature(getattr(jobj, meth)))), (name, meth)
+    assert jsequence.FrameBatch._fields == tsequence.FrameBatch._fields
 
 
 @pytest.mark.fast
@@ -367,7 +475,10 @@ def test_port_imports_no_jax():
     the JAX package, at any depth of the file.  An AST scan, not
     sys.modules: JAX may be imported into this interpreter by other means."""
     files = sorted(PORT_DIR.rglob("*.py")) + [ROOT_DIR / "chip_smoke.py"]
-    assert len(files) >= 37 and files[-1].is_file()
+    assert len(files) >= 47 and files[-1].is_file()
+    for part in ("cli.py", "io/native/__init__.py", "io/sequence.py", "eval/ate.py",
+                 "utils/checkpoint.py"):
+        assert PORT_DIR / part in files, part
     offenders = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
