@@ -22,3 +22,12 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def upload(x, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``.  To the card it goes from pinned memory
+    without a wait, so it adds no host sync of its own."""
+    x = torch.as_tensor(x)
+    if device.type == "cuda" and x.device.type == "cpu":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x.to(device)

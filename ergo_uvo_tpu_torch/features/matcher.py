@@ -36,15 +36,21 @@ def match_descriptors(
     desc_t: torch.Tensor,
     mask_t: torch.Tensor,
     ratio: float = 0.7,
+    binary: bool = False,
 ) -> Matches:
     """kNN(k=2) + Lowe ratio matching of query descriptors against train.
 
-    The JAX package's ``binary=`` (Hamming-scale ratio test for ORB/AKAZE
-    bit vectors) comes with those detectors (ROADMAP.md Queue 1, item 10).
+    ``binary``: the descriptors are {0,1} bit vectors (ORB, AKAZE).  Squared
+    L2 on bits is the Hamming distance, so the same kernel serves the
+    reference's NORM_HAMMING branch (VO_utility.cpp:524-529), and the ratio
+    test runs on the Hamming distances themselves, with no square root.
     """
     min1, idx1, min2 = top2_distances(desc_q, desc_t, mask_t)
-    d1 = torch.sqrt(torch.clamp(min1, min=0.0))
-    d2nd = torch.sqrt(torch.clamp(min2, min=0.0))
+    d1 = torch.clamp(min1, min=0.0)
+    d2nd = torch.clamp(min2, min=0.0)
+    if not binary:
+        d1 = torch.sqrt(d1)
+        d2nd = torch.sqrt(d2nd)
     n_train = mask_t.sum()
     # OpenCV knnMatch(k=2) yields no pair when < 2 train descriptors exist.
     ok = (

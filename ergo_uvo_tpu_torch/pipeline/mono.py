@@ -35,10 +35,10 @@ import numpy as np
 import torch
 
 from ergo_uvo_tpu_torch.config import MonoVOConfig
-from ergo_uvo_tpu_torch.device import resolve_device
+from ergo_uvo_tpu_torch.device import resolve_device, upload
 from ergo_uvo_tpu_torch.estimation.relative_pose import MethodSampler, estimate_relative_pose
 from ergo_uvo_tpu_torch.features.detector import Keypoints
-from ergo_uvo_tpu_torch.features.frontend import detect_and_describe
+from ergo_uvo_tpu_torch.features.frontend import detect_and_describe_cfg, is_binary
 from ergo_uvo_tpu_torch.features.matcher import match_descriptors
 from ergo_uvo_tpu_torch.geometry.camera import projection_matrix
 from ergo_uvo_tpu_torch.geometry.stats import masked_median
@@ -127,7 +127,7 @@ def mono_vo_step(
     Returns (next_state, MonoFrameOutput).  ``sampler(method, mask, H, m)``
     replaces the generator's minimal sets when given (tests only).
     """
-    kpts, desc = detect_and_describe(img, cfg.surf, cfg.max_keypoints, cfg.feature_detector)
+    kpts, desc = detect_and_describe_cfg(img, cfg)
     return mono_vo_step_with_features(
         state, kpts, desc, timestamp, range_measure, K, cfg, generator, sampler
     )
@@ -155,7 +155,8 @@ def mono_vo_step_with_features(
 
     # ---- matching (prev -> curr; VO_utility.cpp:551-573).
     matches = match_descriptors(
-        state.prev_desc, state.prev_mask, desc, kpts.mask, cfg.lowe_ratio_test
+        state.prev_desc, state.prev_mask, desc, kpts.mask, cfg.lowe_ratio_test,
+        binary=is_binary(cfg),
     )
     prev_xy = torch.where(matches.mask[:, None], state.prev_xy, 0.0)
     curr_xy = torch.where(matches.mask[:, None], kpts.xy[matches.idx.long()], 0.0)
@@ -320,10 +321,10 @@ def run_mono_vo_batched_features(
     """:func:`run_mono_vo` with detection taken out of the frame loop.
 
     Features do not depend on the state, so ``detect_and_describe`` runs
-    once on all T frames (truly batched: the integral image, the box sums,
-    the NMS, the stable-sort top-K, the quadratic refinement and the
-    descriptor gathers all carry the frame dimension; nothing is looped),
-    and the loop carries only match -> pose -> triangulate -> scale
+    once on all T frames (truly batched: every detector's scale space, NMS,
+    stable-sort top-K, refinement and descriptor gathers carry the frame
+    dimension; nothing is looped), and the loop carries only
+    match -> pose -> triangulate -> scale
     (:func:`mono_vo_step_with_features`).  Every op of the batch gives a
     frame the bits it gets alone, so the outputs equal :func:`run_mono_vo`'s.
     The detector's intermediates grow with T.
@@ -333,7 +334,7 @@ def run_mono_vo_batched_features(
     imgs, timestamps, ranges, K, state = _run_inputs(
         "run_mono_vo_batched_features", imgs, timestamps, ranges, K, cfg, generator, state, device
     )
-    kpts, descs = detect_and_describe(imgs, cfg.surf, cfg.max_keypoints, cfg.feature_detector)
+    kpts, descs = detect_and_describe_cfg(imgs, cfg)
     outs = []
     for i in range(imgs.shape[0]):
         state, out = mono_vo_step_with_features(
@@ -350,15 +351,6 @@ def check_plan_device(name: str, plan: PreprocessPlan, device: torch.device) -> 
     """Raise if a preprocess plan's tensors lie elsewhere than ``device``."""
     if plan.grid.device != device:
         raise ValueError(f"{name} is on {plan.grid.device}, the run is on {device}")
-
-
-def upload(x, device: torch.device) -> torch.Tensor:
-    """A host array on ``device``.  To the card it goes from pinned memory
-    without a wait, so a chunk's inputs add no host sync of their own."""
-    x = torch.as_tensor(x)
-    if device.type == "cuda" and x.device.type == "cpu":
-        return x.pin_memory().to(device, non_blocking=True)
-    return x.to(device)
 
 
 def read_back(outs: NamedTuple, device: torch.device) -> NamedTuple:

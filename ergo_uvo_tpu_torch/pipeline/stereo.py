@@ -40,10 +40,10 @@ import numpy as np
 import torch
 
 from ergo_uvo_tpu_torch.config import StereoVOConfig
-from ergo_uvo_tpu_torch.device import resolve_device
+from ergo_uvo_tpu_torch.device import resolve_device, upload
 from ergo_uvo_tpu_torch.estimation.pnp import solve_pnp_ransac
 from ergo_uvo_tpu_torch.estimation.sampling import Sampler
-from ergo_uvo_tpu_torch.features.frontend import detect_and_describe
+from ergo_uvo_tpu_torch.features.frontend import detect_and_describe_cfg, is_binary
 from ergo_uvo_tpu_torch.features.matcher import match_descriptors
 from ergo_uvo_tpu_torch.geometry.camera import projection_matrix
 from ergo_uvo_tpu_torch.geometry.triangulation import filter_3d_points, triangulate_points
@@ -53,7 +53,6 @@ from ergo_uvo_tpu_torch.pipeline.mono import (
     check_plan_device,
     concat_chunks,
     read_back,
-    upload,
 )
 from ergo_uvo_tpu_torch.utils.debug import check_frame
 
@@ -137,13 +136,15 @@ def stereo_vo_step(
     Returns (next_state, StereoFrameOutput).  ``sampler(mask, H, 3)``
     replaces the generator's minimal sets when given (tests only).
     """
-    kpts_l, desc_l = detect_and_describe(img_l, cfg.surf, cfg.max_keypoints, cfg.feature_detector)
-    kpts_r, desc_r = detect_and_describe(img_r, cfg.surf, cfg.max_keypoints, cfg.feature_detector)
+    kpts_l, desc_l = detect_and_describe_cfg(img_l, cfg)
+    kpts_r, desc_r = detect_and_describe_cfg(img_r, cfg)
     n_l, n_r = kpts_l.count, kpts_r.count
     detections_ok = (n_l >= cfg.min_num_features) & (n_r >= cfg.min_num_features)
 
     # ---- stereo match curr L (query) <-> R (train) (visual_odometry.h:558).
-    sm = match_descriptors(desc_l, kpts_l.mask, desc_r, kpts_r.mask, cfg.lowe_ratio_test)
+    binary = is_binary(cfg)
+    sm = match_descriptors(desc_l, kpts_l.mask, desc_r, kpts_r.mask, cfg.lowe_ratio_test,
+                           binary=binary)
     n_stereo = sm.count
     stereo_ok = detections_ok & (n_stereo > cfg.min_num_features)
     # Current stereo-matched set, aligned on left slots; emptied when the
@@ -154,7 +155,8 @@ def stereo_vo_step(
     # ---- triangular matching: prev stereo-matched left -> curr FULL left
     # keypoint set (:592 matches against curr_left_descr, not the subset).
     tm = match_descriptors(
-        state.prev_desc_l, state.prev_mask, desc_l, kpts_l.mask, cfg.lowe_ratio_test
+        state.prev_desc_l, state.prev_mask, desc_l, kpts_l.mask, cfg.lowe_ratio_test,
+        binary=binary,
     )
     n_tri = tm.count
     tri_ok = stereo_ok & (n_tri > cfg.min_num_features)

@@ -1,5 +1,6 @@
-"""Parity of the port's feature modules with the JAX package (CPU), and the
-SURF pins of tests/test_surf_pins.py on the port's own front end.
+"""Parity of the port's SURF detector, its upright and oriented descriptors
+and the matcher (L2 and Hamming) with the JAX package (CPU), and the SURF
+pins of tests/test_surf_pins.py on the port's own front end.
 
 The JAX side runs as the JAX tests run it: ``detect_surf`` under ``jit``,
 ``top2_distances_pallas(..., interpret=True)`` and the XLA path of
@@ -18,12 +19,16 @@ import torch
 from test_features import textured_image
 
 from ergo_uvo_tpu.features import detector as jdet
+from ergo_uvo_tpu.features.descriptor import describe_surf as j_describe_surf
 from ergo_uvo_tpu.features.descriptor import describe_upright_surf as j_describe
+from ergo_uvo_tpu.features.descriptor import surf_orientations as j_surf_orientations
 from ergo_uvo_tpu.features.matcher import match_descriptors as j_match
 from ergo_uvo_tpu.features.pallas_matcher import top2_distances_pallas
 from ergo_uvo_tpu_torch.features import detector as tdet
 from ergo_uvo_tpu_torch.features import top2_matcher
+from ergo_uvo_tpu_torch.features.descriptor import describe_surf as t_describe_surf
 from ergo_uvo_tpu_torch.features.descriptor import describe_upright_surf as t_describe
+from ergo_uvo_tpu_torch.features.descriptor import surf_orientations as t_surf_orientations
 from ergo_uvo_tpu_torch.features.matcher import match_and_gather, match_descriptors
 from ergo_uvo_tpu_torch.io import make_mono_sequence
 
@@ -78,6 +83,36 @@ def test_describe_upright_surf_matches_jax(frame, jax_kpts, extended):
     assert td.shape == (128, 128 if extended else 64)
     np.testing.assert_allclose(td, jd, atol=1e-4)
     assert (td[~np.asarray(jax_kpts.mask)] == 0).all()
+
+
+def test_surf_orientations_match_jax(frame, jax_kpts):
+    """Oriented SURF's dominant angle on the JAX keypoints to 1e-5 rad: the
+    window starts are jnp.linspace's float32 values, so the 60-degree
+    windows hold the same responses."""
+    ja = np.asarray(jax.jit(j_surf_orientations)(jnp.asarray(frame), jax_kpts))
+    kp = tdet.Keypoints(*(t(np.asarray(f))[None] for f in jax_kpts))
+    ta = t_surf_orientations(t(frame)[None], kp)[0].numpy()
+    m = np.asarray(jax_kpts.mask)
+    np.testing.assert_allclose(ta[m], ja[m], atol=1e-5)
+
+
+@pytest.mark.parametrize("extended", [False, True], ids=["surf64", "surf128"])
+def test_describe_oriented_surf_matches_jax(frame, jax_kpts, extended):
+    """``describe_surf(upright=False)`` on the JAX keypoints to 1e-4, for one
+    frame and for a batch of two frames (the second one flipped)."""
+    fn = jax.jit(lambda im, k: j_describe_surf(im, k, extended, False))
+    jd = np.asarray(fn(jnp.asarray(frame), jax_kpts))
+    kp = tdet.Keypoints(*(t(np.asarray(f)) for f in jax_kpts))
+    td = t_describe_surf(t(frame), kp, extended, upright=False).numpy()
+    assert td.shape == (128, 128 if extended else 64)
+    np.testing.assert_allclose(td, jd, atol=1e-4)
+    assert (td[~np.asarray(jax_kpts.mask)] == 0).all()
+    pair = t(np.stack([frame, frame[::-1]]))
+    kp2 = tdet.Keypoints(*(torch.stack([f, f]) for f in kp))
+    tb = t_describe_surf(pair, kp2, extended, upright=False)
+    assert torch.equal(tb[0], t(td))
+    np.testing.assert_allclose(tb[1].numpy(), np.asarray(fn(jnp.asarray(frame[::-1]), jax_kpts)),
+                               atol=1e-4)
 
 
 @pytest.mark.parametrize("q,tn,d", TOP2_SHAPES)
@@ -171,6 +206,63 @@ class TestMatcherContract:
                                          t(xy_t), t(dt), torch.ones(16, dtype=torch.bool))
         assert bool(m.mask.all())
         np.testing.assert_array_equal(prev.numpy(), curr.numpy())
+
+
+class TestHammingMatcher:
+    """``binary=True`` (ORB 256 bits, AKAZE 512) against the JAX XLA path:
+    distances are integers, so masks, indices and distances are exact."""
+
+    @staticmethod
+    def _both(dq, mq, dt, mt, ratio):
+        m = match_descriptors(t(dq), t(mq), t(dt), t(mt), ratio, binary=True)
+        jm = j_match(jnp.asarray(dq), jnp.asarray(mq), jnp.asarray(dt), jnp.asarray(mt),
+                     ratio=ratio, impl="xla", binary=True)
+        for got, ref in zip(m, jm):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+        return m
+
+    @staticmethod
+    def _bits(n, d, seed):
+        return np.random.default_rng(seed).integers(0, 2, (n, d)).astype(np.float32)
+
+    @pytest.mark.parametrize("d", [256, 512])
+    def test_random_bits_match_jax(self, d):
+        """Random bit rows, queries near a train row (a few bits flipped),
+        every 5th train row masked, ratio 0.8; the distance is the Hamming
+        count itself, with no square root."""
+        dt = self._bits(96, d, d)
+        dq = dt[:64].copy()
+        flips = np.random.default_rng(1).integers(0, d, (64, 8))
+        np.put_along_axis(dq, flips, 1.0 - np.take_along_axis(dq, flips, 1), 1)
+        mt = np.ones(96, bool)
+        mt[::5] = False
+        m = self._both(dq, np.ones(64, bool), dt, mt, 0.8)
+        ok = m.mask.numpy()
+        assert ok.sum() > 40
+        ham = (dq[:, None, :] != dt[None, :, :]).sum(-1)
+        np.testing.assert_array_equal(m.dist.numpy()[ok], ham[ok, m.idx.numpy()[ok]])
+
+    def test_ties_go_to_the_lower_index(self):
+        """Duplicate train rows give equal best and second distances (the
+        ratio test rejects them); a row that ties two train rows at equal
+        distance keeps the lower index in the kernel's distances."""
+        dt = self._bits(32, 256, 3)
+        dt = np.concatenate([dt, dt])  # every row twice
+        min1, idx1, min2 = top2_matcher.top2_distances(t(dt[:32]), t(dt), torch.ones(64, dtype=torch.bool))
+        np.testing.assert_array_equal(idx1.numpy(), np.arange(32, dtype=np.int32))
+        np.testing.assert_array_equal(min1.numpy(), min2.numpy())
+        m = self._both(dt[:32], np.ones(32, bool), dt, np.ones(64, bool), 0.8)
+        assert int(m.count) == 0
+        same = np.zeros((8, 256), np.float32)  # every train row at distance 0
+        self._both(same, np.ones(8, bool), same, np.ones(8, bool), 0.8)
+
+    def test_fewer_than_two_train_rows(self):
+        """One valid train row, or none: no match at all."""
+        dq = self._bits(8, 256, 4)
+        for n_valid in (0, 1):
+            mt = np.zeros(8, bool)
+            mt[:n_valid] = True
+            assert int(self._both(dq, np.ones(8, bool), dq, mt, 0.8).count) == 0
 
 
 def _nearest(a, b):
