@@ -6,7 +6,8 @@
 Run from the root of a checkout.  It imports nothing of JAX or of
 ``ergo_uvo_tpu``; every check that fails raises, so any failure exits
 non-zero.  It writes only under ``build/chip_smoke/`` in the checkout.
-Eighteen phases, one JSON line each:
+Twenty-three phases, one JSON line each (two detector phases and the
+preprocessed slice print side lines):
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. build: nvcc builds ``ergo_uvo_tpu_torch/csrc/top2_distances.cu`` from the
@@ -61,13 +62,36 @@ Eighteen phases, one JSON line each:
    (512 keypoints, 512 hypotheses) on the slice's 24 frames, ORB through
    ``run_mono_vo_batched_features``: 24 launches (D = 128, 256, 512), the
    outputs against ground truth and against the JAX package's CPU run of
-   the same frames, and one frame's frontend timed, profiled and run under
+   the same frames (medians over generator seeds 0-4), and one frame's
+   frontend timed, profiled and run under
    ``torch.cuda.set_sync_debug_mode("error")``;
 16. accuracy_sift and 17. accuracy_stereo_sift: ``bench.py::section_parity``'s
    SIFT configs and sequences (mono: 3 seeds of 24 frames of 320x240;
    stereo: 2 seeds of 16 pairs), mean velocity RMSE and ATE held to bounds
    set from the port's own CPU run, beside the JAX package's figures;
-18. cli_mono_sift: the CLI as in 11 with ``feature_detector: SIFT``.
+18. cli_mono_sift: the CLI as in 11 with ``feature_detector: SIFT``;
+19. ba: ``bench.py::section_ba``'s window BA problem (8 poses, 512
+   landmarks, 2 fixed poses) through ``ba_solve``: 30 LM iterations under
+   ``torch.cuda.set_sync_debug_mode("error")``, the final cost against the
+   starting one, the fixed poses, the card's result against the port's CPU
+   run of the same arrays; LM iterations/s by the iteration-count slope
+   (30 and 330), launches an iteration and the device-idle share under
+   torch.profiler;
+20. trajectory_ba: ``tests/test_trajectory.py``'s fixture (36 frames of
+   320x240, the starved VO config) through ``run_mono_vo`` then
+   ``refine_mono_trajectory`` (window 6, stride 2, 12 iterations): its
+   gates (ATE below 0.7x the raw one, non-increasing cost curves), the
+   kernel's launches (one a window member but the anchor) and
+   ``ba_iters_per_s``;
+21. loop_closure: ``close_loops_and_optimize`` on ``make_loop_sequence(20,
+   240, 320, seed=2)`` with the test's drift: a loop with j - i >= 12
+   accepted, the endpoint error shrunk 5x, the candidates verified; the
+   pose graph of its loops run twice on the card and once on the CPU,
+   within 1e-3 m (its scatter-adds are atomic on the card);
+22. cli_mono_opt and 23. cli_stereo_opt: the CLI as in 11 and 12 with
+   ``--ba-window 6 --keyframe-stride 3 --ba-iters 12 --loop-closure``: the
+   summary's ``ba_keyframes``, ``ba_solves``, ``ba_iters_per_s`` and
+   ``loops_accepted``, and the launches beyond the VO's.
 
 Then the kernel summary line (launches on every path) and, last,
 ``{"ok": true, "device": ...}``.
@@ -927,15 +951,18 @@ def phase_stream_stereo(torch):
 
 
 # The JAX package on the CPU on the frames of the slice_* detector phases
-# (the same 24 frames and config, PRNG keys 0-4; ORB through the batched
-# runner): the medians of `tools/jax_detector_reference.py --keys 5`.  The
-# port draws other minimal sets (a torch.Generator), so its medians over
-# seeds are held to validity >= JAX's - 0.1 and velocity RMSE <= 1.5 x JAX's.
+# (the same 24 frames and config; ORB through the batched runner): the
+# medians over PRNG keys 0..keys-1 of `tools/jax_detector_reference.py
+# --keys N`.  The port draws other minimal sets (a torch.Generator), so its
+# medians over seeds are held to validity >= JAX's - 0.1 and velocity RMSE
+# <= 1.5 x JAX's.
 DETECTOR_REFERENCE = {
-    "SIFT": {"median_valid_share": 1.0, "median_velocity_rmse": 0.10134529791857437},
-    "ORB": {"median_valid_share": 0.5652173913043478, "median_velocity_rmse": 5.76800016761254},
-    "AKAZE": {"median_valid_share": 1.0, "median_velocity_rmse": 0.5632710367681204},
+    "SIFT": {"keys": 5, "median_valid_share": 1.0, "median_velocity_rmse": 0.10134529791857437},
+    "ORB": {"keys": 5, "median_valid_share": 0.5652173913043478,
+            "median_velocity_rmse": 5.76800016761254},
+    "AKAZE": {"keys": 10, "median_valid_share": 1.0, "median_velocity_rmse": 0.5981855150869289},
 }
+DETECTOR_SEEDS = (0, 1, 2, 3, 4)  # the port's generator seeds of each detector slice
 
 
 def _detector_config(det, num_hypotheses=512, stereo=False):
@@ -986,10 +1013,11 @@ def phase_slice_detector(torch, seq, det):
     ``run_mono_vo_batched_features`` as ``bench.py`` runs it: one launch a
     frame at D = 128 (SIFT), 256 (ORB bits) or 512 (AKAZE bits), the
     frontend of one frame apart, and the outputs against the JAX package's
-    CPU runs: the medians over generator seeds 0, 1, 2 (seed 0 the timed
-    run) of validity share and velocity RMSE against the medians of JAX's
-    over PRNG keys 0-4.  A single draw would not do: JAX's own ORB RMSE
-    spans 2.38-5.97 m/s over the keys."""
+    CPU runs: the medians over generator seeds 0-4 (seed 0 the timed run)
+    of validity share and velocity RMSE against the medians of JAX's over
+    its PRNG keys (``DETECTOR_REFERENCE``).  A single draw would not do:
+    JAX's own ORB RMSE spans 2.38-5.97 m/s over keys 0-4, AKAZE's
+    0.53-0.97 m/s over keys 0-9."""
     import numpy as np
 
     from ergo_uvo_tpu_torch.pipeline import run_mono_vo, run_mono_vo_batched_features
@@ -1005,14 +1033,14 @@ def phase_slice_detector(torch, seq, det):
          "frontend": frontend}, rmse_bound=None, cfg=cfg, valid_min=0.0)
     check(launches == N_FRAMES, f"{phase}: {launches} launches in {N_FRAMES} frames")
     draws = [outs]
-    for seed in (1, 2):
+    for seed in DETECTOR_SEEDS[1:]:
         gen = torch.Generator(device="cuda").manual_seed(seed)
         _, o = runner(seq.imgs_left, seq.timestamps, seq.ranges, seq.K, cfg, gen)
         draws.append({f: getattr(o, f).cpu().numpy() for f in o._fields})
     gt = seq.velocities_prevcam
     valid = [float(o["validity"][1:].mean()) for o in draws]
     rmse = [_velocity_check(np, o, gt, None)[0] for o in draws]
-    out = {"phase": f"{phase}_seeds", "seeds": [0, 1, 2], "valid_share": valid, "velocity_rmse": rmse,
+    out = {"phase": f"{phase}_seeds", "seeds": list(DETECTOR_SEEDS), "valid_share": valid, "velocity_rmse": rmse,
            "median_valid_share": float(np.median(valid)), "median_velocity_rmse": float(np.median(rmse)),
            "jax_cpu": ref, "valid_min": ref["median_valid_share"] - 0.1,
            "rmse_max": 1.5 * ref["median_velocity_rmse"]}
@@ -1114,10 +1142,15 @@ CLI_PARAMS = {
 }
 
 
-def phase_cli(torch, run):
+OPT_FLAGS = ["--ba-window", "6", "--keyframe-stride", "3", "--ba-iters", "12", "--loop-closure"]
+
+
+def phase_cli(torch, run, opt=False):
     """``python -m ergo_uvo_tpu_torch.cli {mode} --synthetic 24`` in process,
     with no ``--device``: the card; ``run`` is ``mono``, ``stereo`` or
-    ``mono_sift`` (mono with ``feature_detector: SIFT`` in ``--params``)."""
+    ``mono_sift`` (mono with ``feature_detector: SIFT`` in ``--params``);
+    ``opt`` adds ``OPT_FLAGS`` (window BA and loop closure after the
+    stream)."""
     import math
 
     import numpy as np
@@ -1136,10 +1169,12 @@ def phase_cli(torch, run):
     want = {"mono": _main_path_config(), "stereo": _stereo_config(),
             "mono_sift": _detector_config("SIFT")}[run]
     check(cfg == want, f"cli_{run}: --params does not give the phase's config")
-    out = WORK_DIR / f"cli_{run}.jsonl"
+    phase = f"cli_{run}_opt" if opt else f"cli_{run}"
+    out = WORK_DIR / f"{phase}.jsonl"
     out.unlink(missing_ok=True)
     argv = [mode, "--synthetic", str(N_FRAMES), "--synthetic-size", "640x480",
-            "--params", str(params), "--chunk-size", "8", "--out", str(out)]
+            "--params", str(params), "--chunk-size", "8", "--out", str(out),
+            *(OPT_FLAGS if opt else [])]
 
     # Watch each chunk's outputs where the runner reads them back.
     read_back_devices = []
@@ -1168,21 +1203,290 @@ def phase_cli(torch, run):
     pub = np.array([r["published"] for r in records])
     val = np.array([r["validity"] for r in records])
     check(len(records) == N_FRAMES and summary["frames"] == N_FRAMES,
-          f"cli_{run}: {len(records)} records, summary {summary}")
+          f"{phase}: {len(records)} records, summary {summary}")
     # The SURF runs are valid on every published frame; SIFT is held to the
     # mono floor of 0.7 (its accuracy is accuracy_sift's to check).
     valid_min = 0.7 if run == "mono_sift" else 1.0
     check(bool(pub[1:].all()) and float(val[1:].mean()) >= valid_min,
-          f"cli_{run}: published {pub.astype(int).tolist()}, valid {val.astype(int).tolist()}")
-    check(math.isfinite(summary["ate_m"]), f"cli_{run}: ate_m {summary['ate_m']}")
+          f"{phase}: published {pub.astype(int).tolist()}, valid {val.astype(int).tolist()}")
+    check(math.isfinite(summary["ate_m"]), f"{phase}: ate_m {summary['ate_m']}")
     check(summary["device"].startswith("cuda") and read_back_devices
           and all(d == [summary["device"]] for d in read_back_devices),
-          f"cli_{run}: ran on {summary['device']}, chunks read back from {read_back_devices}")
-    check(launches == per_frame * N_FRAMES,
-          f"cli_{run}: kernel launched {launches} times in {N_FRAMES} frames")
-    emit({"phase": f"cli_{run}", "argv": argv, "summary": summary, "kernel_launches": launches,
+          f"{phase}: ran on {summary['device']}, chunks read back from {read_back_devices}")
+    vo_launches = per_frame * N_FRAMES
+    if opt:
+        # The VO's launches, then one a window member but the anchor a BA
+        # solve and those of retrieval and verification.
+        check({"ba_keyframes", "ba_solves", "ba_iters_per_s", "loops_accepted"} <= set(summary)
+              and summary["ba_solves"] >= 1 and summary["ba_iters_per_s"] > 0,
+              f"{phase}: summary {summary}")
+        check(launches >= vo_launches + 5 * summary["ba_solves"],
+              f"{phase}: kernel launched {launches} times, the VO alone {vo_launches}")
+    else:
+        check(launches == vo_launches,
+              f"{phase}: kernel launched {launches} times in {N_FRAMES} frames")
+    emit({"phase": phase, "argv": argv, "summary": summary, "kernel_launches": launches,
+          "launches_beyond_vo": launches - vo_launches,
           "launches_per_frame": launches / N_FRAMES, "seconds": seconds,
           "chunks_read_back_from": read_back_devices})
+    return launches
+
+
+# bench.py::section_ba's problem; the tolerances of the card against the
+# CPU are tests/test_torch_optim.py::BA_TOL's for two fixed poses.
+BA_POSES, BA_LANDMARKS, BA_ITERS, BA_ITERS_HI = 8, 512, 30, 330
+BA_TOL = {"costs_rtol": 1e-4, "final_cost_rtol": 2e-2, "state_atol": 2e-3}
+
+
+def _ba_scene(np):
+    """``bench.py::section_ba``'s scene: (K, obs (P, L, 2), R0, t0, X0, X)."""
+    rng = np.random.default_rng(0)
+    P, L = BA_POSES, BA_LANDMARKS
+    X = np.stack([rng.uniform(-3, 3, L), rng.uniform(-2, 2, L), rng.uniform(5, 9, L)],
+                 -1).astype(np.float32)
+    K = np.array([[300.0, 0, 160], [0, 300, 120], [0, 0, 1]], np.float32)
+    obs = np.zeros((P, L, 2), np.float32)
+    ts = np.zeros((P, 3), np.float32)
+    Rs = np.tile(np.eye(3, dtype=np.float32), (P, 1, 1))
+    for p in range(P):
+        ts[p] = [0.25 * p, 0.0, 0.0]
+        pc = X + ts[p]
+        obs[p] = pc[:, :2] / pc[:, 2:3] * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]]
+    obs += 0.1 * rng.standard_normal(obs.shape).astype(np.float32)
+    X0 = X + 0.2 * rng.standard_normal(X.shape).astype(np.float32)
+    return K, obs, Rs, ts, X0, X
+
+
+def _profile_launches(torch, fn):
+    """(wall ms, device ms, kernel launches, host-sync calls) of one ``fn()``
+    under torch.profiler, the card drained before and after; launches through
+    cudaLaunchKernel and cuLaunchKernel (cuSOLVER's) both count, and so does every
+    synchronizing call the trace shows (a library's own, which
+    ``set_sync_debug_mode`` does not see, included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    device_ms = 1e-3 * sum(e.self_device_time_total for e in events
+                           if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    launches = sum(e.count for e in events if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"))
+    # Host calls that may wait (the harness's own synchronize is one), and
+    # the copies the device ran, by direction.
+    syncs = {e.key: e.count for e in events
+             if e.key.startswith(("cudaMemcpy", "cudaStreamSynchronize", "cudaDeviceSynchronize",
+                                  "cudaEventSynchronize", "cuMemcpy", "cuStreamSynchronize",
+                                  "Memcpy"))}
+    check(device_ms > 0, "torch.profiler recorded no device time")
+    return wall_ms, device_ms, launches, syncs
+
+
+def phase_ba(torch):
+    """Window BA on the card: ``ba_solve`` on ``bench.py::section_ba``'s
+    problem, then the same scene as a keyframe window through
+    ``WindowedBA.refine`` (association by the top-2 kernel, then the solve)."""
+    import numpy as np
+
+    from ergo_uvo_tpu_torch.features import top2_matcher
+    from ergo_uvo_tpu_torch.optim.ba import BAProblem, ba_solve, reprojection_residuals
+    from ergo_uvo_tpu_torch.optim.keyframes import WindowedBA
+
+    K, obs, Rs, ts, X0, X = _ba_scene(np)
+
+    def arrays(dev):
+        prob = BAProblem(torch.as_tensor(K).to(dev), torch.as_tensor(obs).to(dev),
+                         torch.ones((BA_POSES, BA_LANDMARKS), dtype=torch.bool, device=dev), 2)
+        return prob, *(torch.as_tensor(a).to(dev) for a in (Rs, ts, X0))
+
+    prob, R0, t0, Xd = arrays(torch.device("cuda"))
+    ba_solve(prob, R0, t0, Xd, iters=2)  # the first cuSOLVER call, outside every timing
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, costs = ba_solve(prob, R0, t0, Xd, iters=BA_ITERS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+    def seconds(n):
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        ba_solve(prob, R0, t0, Xd, iters=n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t_start
+
+    t_lo = min(seconds(BA_ITERS) for _ in range(2))
+    t_hi = min(seconds(BA_ITERS_HI) for _ in range(2))
+    iters_per_s = (BA_ITERS_HI - BA_ITERS) / (t_hi - t_lo)
+    wall_ms, device_ms, launches, syncs = _profile_launches(
+        torch, lambda: ba_solve(prob, R0, t0, Xd, iters=BA_ITERS))
+
+    r, _, _ = reprojection_residuals(prob.K, R0, t0, Xd, prob.obs_uv, prob.obs_mask)
+    start_cost = float((r * r).sum())
+    costs = costs.cpu().numpy()
+    cpu_state, cpu_costs = ba_solve(*arrays(torch.device("cpu")), iters=BA_ITERS)
+    cpu_costs = cpu_costs.numpy()
+    state_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(state[:3], cpu_state[:3]))
+    first_rel = float((np.abs(costs[:4] - cpu_costs[:4]) / cpu_costs[:4]).max())
+    final_rel = float(abs(costs[-1] - cpu_costs[-1]) / cpu_costs[-1])
+
+    # The scene as a keyframe window: one random 64-d unit descriptor a
+    # landmark, seen by every keyframe with 1% noise; the VO poses are the
+    # true ones and the anchor pair fixes the gauge.
+    rng = np.random.default_rng(1)
+    desc = rng.standard_normal((BA_LANDMARKS, 64)).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
+    wba = WindowedBA(window_size=BA_POSES, iters=12)
+    for p in range(BA_POSES):
+        d = desc + 0.01 * rng.standard_normal(desc.shape).astype(np.float32)
+        wba.push_keyframe(*(torch.as_tensor(a).cuda() for a in (
+            obs[p], d, np.ones(BA_LANDMARKS, bool), Rs[p], ts[p])))
+    top2_matcher.LAUNCHES = 0
+    w_state, w_costs, lm_mask = wba.refine(torch.as_tensor(K).cuda())
+    torch.cuda.synchronize()
+    window_launches = top2_matcher.LAUNCHES
+    w_costs = w_costs.cpu().numpy()
+    n_landmarks = int(lm_mask.sum())
+
+    emit({"phase": "ba", "poses": BA_POSES, "landmarks": BA_LANDMARKS, "num_fixed_poses": 2,
+          "iters": BA_ITERS, "start_cost": start_cost, "costs": costs.tolist(),
+          "final_over_start": float(costs[-1] / start_cost), "no_host_sync": True,
+          "lm_iters_per_s": iters_per_s, "slope_iters": [BA_ITERS, BA_ITERS_HI],
+          "seconds_lo_hi": [t_lo, t_hi],
+          "profiled_wall_ms": wall_ms, "device_ms": device_ms,
+          "device_idle_share": 1.0 - device_ms / wall_ms,
+          "launches_per_iter": launches / BA_ITERS, "sync_calls_in_profile": syncs,
+          "cpu_first_costs_max_rel_diff": first_rel, "cpu_final_cost_rel_diff": final_rel,
+          "cpu_state_max_abs_diff": state_err, "tolerances": BA_TOL,
+          "window": {"kernel_launches": window_launches, "landmarks_kept": n_landmarks,
+                     "costs_first_last": [float(w_costs[0]), float(w_costs[-1])]}})
+    check(costs[-1] <= 0.02 * start_cost, f"ba: final cost {costs[-1]} > 2% of {start_cost}")
+    check(torch.equal(state.R[:2], R0[:2]) and torch.equal(state.t[:2], t0[:2]),
+          "ba: a fixed pose moved")
+    check(first_rel <= BA_TOL["costs_rtol"] and final_rel <= BA_TOL["final_cost_rtol"]
+          and state_err <= BA_TOL["state_atol"],
+          f"ba: the card differs from the CPU: costs {first_rel} / {final_rel}, state {state_err}")
+    check(window_launches == BA_POSES - 1, f"ba: {window_launches} launches for a window of {BA_POSES}")
+    noise_floor = BA_POSES * BA_LANDMARKS * 2 * 0.1**2  # chi^2 of the 0.1 px pixel noise
+    check(n_landmarks >= 0.9 * BA_LANDMARKS and w_costs[-1] <= 2.0 * noise_floor,
+          f"ba: the window kept {n_landmarks} landmarks, costs {w_costs[0]} -> {w_costs[-1]}")
+    return window_launches
+
+
+def phase_trajectory_ba(torch):
+    """``tests/test_trajectory.py``'s BA gate on the card: the starved VO run,
+    then ``refine_mono_trajectory`` with its BA config."""
+    import numpy as np
+
+    from ergo_uvo_tpu_torch.config import MonoVOConfig, SurfConfig
+    from ergo_uvo_tpu_torch.eval import ate_rmse
+    from ergo_uvo_tpu_torch.features import top2_matcher
+    from ergo_uvo_tpu_torch.io import make_mono_sequence
+    from ergo_uvo_tpu_torch.optim import integrate_mono_poses, refine_mono_trajectory
+    from ergo_uvo_tpu_torch.pipeline import run_mono_vo
+
+    cfg_vo = MonoVOConfig(surf=SurfConfig(min_hessian=150.0), max_keypoints=96, num_hypotheses=16)
+    cfg_ba = MonoVOConfig(surf=SurfConfig(min_hessian=60.0), max_keypoints=256, num_hypotheses=16)
+    seq = make_mono_sequence(n_frames=36, height=240, width=320, dt=0.25, seed=5, speed=0.5)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    top2_matcher.LAUNCHES = 0
+    _, outs = run_mono_vo(seq.imgs_left, seq.timestamps, seq.ranges, seq.K, cfg_vo, gen)
+    vo_launches = top2_matcher.LAUNCHES
+    outs = type(outs)(*(x.cpu().numpy() for x in outs))
+    _, _, raw = integrate_mono_poses(outs.velocity, outs.R, seq.timestamps, outs.published)
+    gt = seq.positions - seq.positions[0]
+
+    top2_matcher.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = refine_mono_trajectory(seq.imgs_left, seq.timestamps, outs, seq.K, cfg_ba,
+                                 window_size=6, keyframe_stride=2, ba_iters=12)
+    seconds = time.perf_counter() - t0
+    launches = top2_matcher.LAUNCHES
+    ate_raw, ate_ba = ate_rmse(raw, gt), ate_rmse(res.positions, gt)
+    diffs = np.diff(res.costs, axis=1)
+    monotone = bool((diffs <= 1e-3 * np.abs(res.costs[:, :-1]) + 1e-5).all())
+    emit({"phase": "trajectory_ba", "frames": 36, "height": 240, "width": 320,
+          "window": 6, "keyframe_stride": 2, "ba_iters": 12,
+          "vo_valid_share": float(outs.validity[1:].mean()), "vo_kernel_launches": vo_launches,
+          "ate_raw_m": ate_raw, "ate_ba_m": ate_ba, "ate_ratio": ate_ba / ate_raw,
+          "keyframes": int(len(res.kf_indices)), "solves": int(res.costs.shape[0]),
+          "ba_iters_per_s": res.ba_iters_per_s, "seconds": seconds,
+          "costs_first_last": [[float(c[0]), float(c[-1])] for c in res.costs],
+          "kernel_launches": launches, "costs_non_increasing": monotone})
+    check(ate_ba < 0.7 * ate_raw, f"trajectory_ba: ATE {ate_ba} not below 0.7 x {ate_raw}")
+    check(monotone, "trajectory_ba: a cost curve increases")
+    check(launches == 5 * res.costs.shape[0],
+          f"trajectory_ba: {launches} launches for {res.costs.shape[0]} windows of 6")
+    return launches
+
+
+def phase_loop_closure(torch):
+    """``tests/test_trajectory.py``'s loop gate on the card:
+    ``close_loops_and_optimize`` on the loop fixture with injected drift."""
+    import numpy as np
+
+    from ergo_uvo_tpu_torch.config import MonoVOConfig, SurfConfig
+    from ergo_uvo_tpu_torch.features import top2_matcher
+    from ergo_uvo_tpu_torch.io import make_loop_sequence
+    from ergo_uvo_tpu_torch.optim import trajectory
+
+    cfg = MonoVOConfig(surf=SurfConfig(min_hessian=60.0), max_keypoints=256, num_hypotheses=256)
+    seq = make_loop_sequence(n_frames=20, height=240, width=320, seed=2)
+    T = len(seq.imgs_left)
+    rng = np.random.default_rng(0)
+    step = np.linalg.norm(np.diff(seq.positions, axis=0), axis=-1).mean()
+    d = rng.standard_normal(3)
+    d /= np.linalg.norm(d)
+    pos_drift = seq.positions + np.outer(np.arange(T), d) * (0.06 * step)
+    t_drift = -np.einsum("tij,tj->ti", seq.rotations, pos_drift)
+    before = float(np.linalg.norm(pos_drift[-1] - seq.positions[-1]))
+
+    verified = []
+    real_verify = trajectory.verify_loop_candidate
+
+    def watched_verify(*args, **kwargs):
+        verified.append(1)
+        return real_verify(*args, **kwargs)
+
+    trajectory.verify_loop_candidate = watched_verify
+    top2_matcher.LAUNCHES = 0
+    try:
+        t0 = time.perf_counter()
+        res = trajectory.close_loops_and_optimize(
+            seq.imgs_left, seq.rotations, t_drift, seq.ranges, seq.K, cfg,
+            min_gap=12, top_k=6, min_similarity=0.8, iters=25)
+        seconds = time.perf_counter() - t0
+    finally:
+        trajectory.verify_loop_candidate = real_verify
+    launches = top2_matcher.LAUNCHES
+    after = float(np.linalg.norm((res.positions[-1] - res.positions[0])
+                                 - (seq.positions[-1] - seq.positions[0])))
+    # The pose graph's scatter-adds are atomic adds in no fixed order on the
+    # card: two runs of the same graph, and the CPU's, agree to the tests'
+    # 1e-3 (tests/test_torch_trajectory.py::test_optimize_with_loops_matches_jax).
+    graph_runs = [trajectory._optimize_with_loops(seq.rotations, t_drift, res.loops, 10.0, 25, dev)
+                  for dev in (torch.device("cuda"), torch.device("cuda"), torch.device("cpu"))]
+    rerun_diff = float(np.abs(graph_runs[0].positions - graph_runs[1].positions).max())
+    cpu_diff = float(np.abs(graph_runs[0].positions - graph_runs[2].positions).max())
+    emit({"phase": "loop_closure", "frames": T, "height": 240, "width": 320,
+          "candidates_verified": len(verified),
+          "loops": [[lp.i, lp.j, lp.num_inliers] for lp in res.loops],
+          "endpoint_error_before_m": before, "endpoint_error_after_m": after,
+          "pose_graph_costs_first_last": [float(res.costs[0]), float(res.costs[-1])],
+          "pose_graph_rerun_max_abs_diff_m": rerun_diff, "pose_graph_cpu_max_abs_diff_m": cpu_diff,
+          "seconds": seconds, "kernel_launches": launches})
+    check(any(lp.j - lp.i >= 12 for lp in res.loops), f"loop_closure: loops {res.loops}")
+    check(rerun_diff <= 1e-3 and cpu_diff <= 1e-3,
+          f"loop_closure: pose graph reruns differ by {rerun_diff} m, from the CPU by {cpu_diff} m")
+    check(after < before / 5.0, f"loop_closure: endpoint error {before} -> {after}")
+    check(launches == len(verified) > 0,
+          f"loop_closure: {launches} launches for {len(verified)} candidates")
     return launches
 
 
@@ -1222,6 +1526,15 @@ def main() -> int:
         paths[name], frames_by_path[name] = phase_accuracy(torch, stereo)
     paths["cli_mono_sift"] = phase_cli(torch, "mono_sift")
     frames_by_path["cli_mono_sift"] = N_FRAMES
+    # The optimization layers: launches per frame there are per window
+    # member (ba, trajectory_ba), per candidate (loop_closure) or per frame
+    # of the whole CLI run (VO, BA and loop closure).
+    paths["ba"], frames_by_path["ba"] = phase_ba(torch), BA_POSES
+    paths["trajectory_ba"], frames_by_path["trajectory_ba"] = phase_trajectory_ba(torch), 36
+    paths["loop_closure"], frames_by_path["loop_closure"] = phase_loop_closure(torch), 20
+    for mode in ("mono", "stereo"):
+        paths[f"cli_{mode}_opt"] = phase_cli(torch, mode, opt=True)
+        frames_by_path[f"cli_{mode}_opt"] = N_FRAMES
     check(all(n > 0 for n in paths.values()), f"a path launched the kernel no time: {paths}")
     emit({"kernels": [{"name": "top2_distances", "route": "cuda", "source": KERNEL_SOURCE,
                        "replaces": KERNEL_REPLACES, "launches": launches,

@@ -14,6 +14,14 @@ a plan without distortion or CLAHE, which leaves them as they are, so it sees
 what the JAX CLI's synthetic run sees.  Real-data runs can checkpoint and
 resume (``--checkpoint``, ``--resume``).
 
+``--ba-window K`` refines the trajectory with sliding-window BA and
+``--loop-closure`` adds verified loop edges and optimizes the pose graph
+(``ergo_uvo_tpu_torch.optim``), mono and stereo.  Both re-detect on the
+stream's preprocessed frames, which the run then keeps on its device (the
+JAX CLI bulk-decodes the sequence in this mode instead).  A resumed stream
+would lack its prefix's frames, so these flags refuse ``--checkpoint`` and
+``--resume``.
+
 Usage:
   python -m ergo_uvo_tpu_torch.cli mono --params mono_VO_parameters.yaml \\
       --intrinsics mono_VO_intrinsics.yaml --camera downward_camera \\
@@ -41,7 +49,9 @@ The summary line (JSON) holds the JAX CLI's keys.  compile_s is the first
 chunk's time beyond a steady chunk's: on the card, the CUDA context, the top-2
 kernel's build (nvcc) or load, and the allocator's warm-up; the port compiles
 nothing else.  steady_fps is the frame rate of the later chunks (pad frames
-included).  device is where the run ran.
+included).  device is where the run ran.  With --ba-window: ba_keyframes,
+ba_solves and ba_iters_per_s (LM iterations/s over the solves after the
+first); with --loop-closure: loops_accepted.
 """
 
 
@@ -287,6 +297,39 @@ def _record(args, outs):
     rec.close()
 
 
+def _optimizing(args) -> bool:
+    return bool(args.ba_window or args.loop_closure)
+
+
+def _refine(args, summary, pos, outs, tss, imgs, K, cfg, device, close_loops):
+    """``--ba-window`` then ``--loop-closure`` over the run's kept frames, as
+    the JAX CLI: the pose graph starts from the BA-refined poses when both
+    run.  ``close_loops(R_wc, t_wc, generator)`` is the mode's loop-closure
+    function; its generator is seeded with ``--seed`` + 1.  Returns the
+    positions to write, and adds the summary's keys."""
+    from ergo_uvo_tpu_torch.optim import integrate_mono_poses, refine_mono_trajectory
+
+    ba_res = None
+    if args.ba_window:
+        ba_res = refine_mono_trajectory(
+            imgs, tss, outs, K, cfg, window_size=args.ba_window,
+            keyframe_stride=args.keyframe_stride, ba_iters=args.ba_iters, device=device,
+        )
+        pos = ba_res.positions
+        summary["ba_keyframes"] = int(len(ba_res.kf_indices))
+        summary["ba_solves"] = int(ba_res.costs.shape[0])
+        summary["ba_iters_per_s"] = round(ba_res.ba_iters_per_s, 2)
+    if args.loop_closure:
+        if ba_res is not None:
+            R_wc, t_wc = ba_res.R_wc, ba_res.t_wc
+        else:
+            R_wc, t_wc, _ = integrate_mono_poses(outs.velocity, outs.R, tss, outs.published)
+        pg = close_loops(R_wc, t_wc, torch.Generator(device=device).manual_seed(args.seed + 1))
+        pos = pg.positions
+        summary["loops_accepted"] = len(pg.loops)
+    return pos
+
+
 def _run_mono(args, device):
     from ergo_uvo_tpu_torch.config import MonoVOConfig, load_mono_intrinsics, load_vo_params
     from ergo_uvo_tpu_torch.eval import integrate_mono_trajectory
@@ -351,11 +394,13 @@ def _run_mono(args, device):
             rgs_p = np.concatenate([rgs[start:n_real], np.full(pad, rgs[n_real - 1], np.float32)])
             return JpegDirectorySource(paths_p, timestamps=tss_p, ranges=rgs_p)
 
+    kept = [] if _optimizing(args) else None
+
     def launch(start, pad, tss_p, state0, generator, chunk, cb, timings):
         return run_mono_vo_streaming(
             source(start, pad, tss_p), plan, plan.new_K, cfg, generator,
             chunk_size=chunk, state=state0, chunk_callback=cb, timings=timings,
-            device=device,
+            device=device, frames=kept,
         )
 
     outs, perf = _run_streamed(
@@ -407,6 +452,16 @@ def _run_mono(args, device):
                 file=sys.stderr,
             )
 
+    if kept is not None:
+        from ergo_uvo_tpu_torch.optim import close_loops_and_optimize
+
+        imgs = torch.cat(kept)[:n_real]
+
+        def close_loops(R_wc, t_wc, generator):
+            return close_loops_and_optimize(imgs, R_wc, t_wc, rgs[:n_real], plan.new_K, cfg,
+                                            generator=generator, device=device)
+
+        pos = _refine(args, summary, pos, outs, tss, imgs, plan.new_K, cfg, device, close_loops)
     np.savetxt(os.path.splitext(args.out)[0] + "_trajectory.txt", pos)
     if gt_positions is not None:
         from ergo_uvo_tpu_torch.eval import ate_rmse
@@ -512,12 +567,13 @@ def _run_stereo(args, device):
             return JpegPairSource(paths_lp, paths_rp, timestamps=tss_p)
 
     rig = stereo_rig_from_numpy(rig, device)
+    kept = [] if _optimizing(args) else None
 
     def launch(start, pad, tss_p, state0, generator, chunk, cb, timings):
         return run_stereo_vo_streaming(
             source(start, pad, tss_p), plan_l, plan_r, rig, cfg, generator,
             chunk_size=chunk, state=state0, chunk_callback=cb, timings=timings,
-            device=device,
+            device=device, frames=kept,
         )
 
     outs, perf = _run_streamed(
@@ -534,7 +590,6 @@ def _run_stereo(args, device):
     # — the same prev-cam-frame displacement convention as mono, so the same
     # integrator applies (stereo_output_computation, visual_odometry.h:148-159).
     pos = integrate_mono_trajectory(outs.velocity, outs.R, tss, outs.published)
-    np.savetxt(os.path.splitext(args.out)[0] + "_trajectory.txt", pos)
     summary = {
         "frames": int(n_real),
         "published": int(outs.published.sum()),
@@ -543,6 +598,21 @@ def _run_stereo(args, device):
         **perf,
         "device": str(device),
     }
+    if kept is not None:
+        # Stereo outputs share mono's prev-cam displacement convention with
+        # metric scale, so the same window refinement runs on the left eye;
+        # loop edges come from PnP against stereo landmarks.
+        from ergo_uvo_tpu_torch.optim import close_loops_and_optimize_stereo
+
+        imgs_l = torch.cat([left for left, _ in kept])[:n_real]
+        imgs_r = torch.cat([right for _, right in kept])[:n_real]
+
+        def close_loops(R_wc, t_wc, generator):
+            return close_loops_and_optimize_stereo(imgs_l, imgs_r, R_wc, t_wc, rig, cfg,
+                                                   generator=generator, device=device)
+
+        pos = _refine(args, summary, pos, outs, tss, imgs_l, rig.K_left, cfg, device, close_loops)
+    np.savetxt(os.path.splitext(args.out)[0] + "_trajectory.txt", pos)
     if gt_positions is not None:
         from ergo_uvo_tpu_torch.eval import ate_rmse
 
@@ -591,11 +661,12 @@ def main(argv=None):
                         help="torch device to run on (default: the card, "
                              "cuda; 'cpu' runs on the CPU)")
         sp.add_argument("--ba-window", type=int, default=0,
-                        help="sliding-window BA: not ported yet, exits")
+                        help="refine with sliding-window BA of this many "
+                             "keyframes (0 = off)")
         sp.add_argument("--keyframe-stride", type=int, default=3)
         sp.add_argument("--ba-iters", type=int, default=12)
         sp.add_argument("--loop-closure", action="store_true",
-                        help="retrieval + pose-graph loop closure: not ported yet, exits")
+                        help="run retrieval + pose-graph loop closure")
         sp.add_argument("--chunk-size", type=int, default=16,
                         help="streaming chunk length")
         sp.add_argument("--checkpoint",
@@ -615,11 +686,12 @@ def main(argv=None):
                              "(reads each frame back; debug only) and assert "
                              "all outputs finite")
     args = p.parse_args(argv)
-    if args.ba_window or args.loop_closure:
+    if _optimizing(args) and (args.checkpoint or args.resume):
         raise SystemExit(
-            "error: --ba-window and --loop-closure are not ported to "
-            "ergo_uvo_tpu_torch yet (ROADMAP.md Queue 1 item 11, the "
-            "optimization layers); run without them"
+            "error: --ba-window and --loop-closure re-detect on every frame of "
+            "the run, which a resumed stream no longer holds; run them without "
+            "--checkpoint and --resume (a deliberate deviation from the JAX "
+            "CLI, ROADMAP.md Queue 3)"
         )
     try:
         device = resolve_device(args.device)

@@ -116,6 +116,11 @@ def filter_3d_points(
     return gate2, mean_err
 
 
+def transform_points(R: torch.Tensor, t: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """x' = R x + t on (N, 3) points."""
+    return points @ R.T + t[None, :]
+
+
 def cheirality_mask(
     R: torch.Tensor, t: torch.Tensor, points: torch.Tensor,
     max_depth: float | None = None,

@@ -383,6 +383,7 @@ def run_mono_vo_streaming(
     timings: list | None = None,
     sampler: FrameSampler | None = None,
     device: torch.device | str | None = None,
+    frames: list | None = None,
 ):
     """Stream a :class:`~ergo_uvo_tpu_torch.io.sequence.FrameSource` through mono VO.
 
@@ -408,6 +409,10 @@ def run_mono_vo_streaming(
     entry also holds the CUDA context, the kernel's build or load and the
     allocator's warm-up.  A chunk reads back from the card once.
 
+    `frames` (optional list) collects each chunk's preprocessed frames, a
+    (n, H, W) tensor on ``device`` a chunk: what window BA and loop closure
+    re-detect on after the stream.
+
     The plan's tensors, a ``state`` and the generator must lie on ``device``
     (``None``: the card).  Raises ``ValueError`` when the source yields no
     complete chunk.
@@ -421,6 +426,8 @@ def run_mono_vo_streaming(
         t0 = time.perf_counter()
         n = len(batch.imgs)
         imgs = preprocess_frame(plan, upload(batch.imgs, device).float())
+        if frames is not None:
+            frames.append(imgs)
         ranges = batch.ranges if batch.ranges is not None else np.ones(n, np.float32)
         imgs, tss, rgs, K, state = _run_inputs(
             "run_mono_vo_streaming", imgs, upload(batch.timestamps, device),

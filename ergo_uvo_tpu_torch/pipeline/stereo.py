@@ -304,6 +304,7 @@ def run_stereo_vo_streaming(
     timings: list | None = None,
     sampler: FrameSampler | None = None,
     device: torch.device | str | None = None,
+    frames: list | None = None,
 ):
     """Stream synced L/R frame batches through stereo VO chunk by chunk.
 
@@ -321,7 +322,8 @@ def run_stereo_vo_streaming(
 
     `chunk_callback(frames_done, state, chunk_out, generator_state)`,
     `timings`, `sampler` and `device` — see
-    :func:`ergo_uvo_tpu_torch.pipeline.mono.run_mono_vo_streaming`.
+    :func:`ergo_uvo_tpu_torch.pipeline.mono.run_mono_vo_streaming`;
+    `frames` collects each chunk's preprocessed ``(left, right)`` frames.
     """
     device = resolve_device(device)
     check_plan_device("plan_l", plan_l, device)
@@ -336,6 +338,8 @@ def run_stereo_vo_streaming(
         n = len(batch.imgs)
         imgs_l = preprocess_frame(plan_l, upload(batch.imgs, device).float())
         imgs_r = preprocess_frame(plan_r, upload(batch.imgs_right, device).float())
+        if frames is not None:
+            frames.append((imgs_l, imgs_r))
         imgs_l, imgs_r, tss, state = _stereo_inputs(
             "run_stereo_vo_streaming", imgs_l, imgs_r, upload(batch.timestamps, device),
             rig, cfg, generator, state, device,

@@ -6,8 +6,9 @@ code runs on the JAX side, nothing is compiled), then the port's own runs
 with ``--device cpu``: the synthetic summary, the mono JPEG-directory path
 (every frame streamed, the ``--ranges`` check, a resume after frames were
 appended, a changed prefix refused), stereo pairing by stamp with a dropped
-right frame, and the flags that are not ported yet.  Frames of 160x128, at
-most 9 of them.
+right frame, and ``--ba-window`` / ``--loop-closure`` (mono and stereo,
+against the functions called directly; refused with ``--checkpoint``).
+Frames of 160x128, at most 9 of them.
 """
 
 import json
@@ -84,6 +85,16 @@ JAX_MONO_SYNTHETIC_KEYS = {"frames", "dead_reckoned_frames", "published", "valid
                            "mean_inliers", "compile_s", "steady_fps",
                            "mean_inlier_fraction", "ate_m"}
 JAX_STEREO_SYNTHETIC_KEYS = {"frames", "published", "valid", "compile_s", "steady_fps", "ate_m"}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Eager ops on these small images are faster on one thread than spread
+    over a shared host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _write_jpegs(directory, imgs, names=None):
@@ -364,9 +375,68 @@ def test_stereo_dropped_right_frame_pairs_by_stamp(capsys, tmp_path):
 @pytest.mark.fast
 @pytest.mark.parametrize("flag", [["--ba-window", "4"], ["--loop-closure"]])
 def test_unported_flags_exit_with_their_roadmap_item(tmp_path, flag):
-    """Window BA and loop closure are not ported: the run exits and names
-    the roadmap item, instead of ignoring the flag."""
-    with pytest.raises(SystemExit, match="Queue 1 item 11"):
-        cli.main(["mono", "--synthetic", "4", "--device", "cpu",
-                  "--out", str(tmp_path / "x.jsonl"), *flag])
-    assert not (tmp_path / "x.jsonl").exists()
+    """Window BA and loop closure re-detect on every frame of the run, which
+    a resumed stream would not hold: with ``--checkpoint`` the run exits and
+    names the deliberate deviation in the roadmap, instead of ignoring the
+    flag or the checkpoint."""
+    with pytest.raises(SystemExit, match="deliberate deviation .*ROADMAP.md Queue 3"):
+        cli.main(["mono", "--synthetic", "4", "--device", "cpu", "--checkpoint",
+                  str(tmp_path / "c.npz"), "--out", str(tmp_path / "x.jsonl"), *flag])
+    assert not (tmp_path / "x.jsonl").exists() and not (tmp_path / "c.npz").exists()
+
+
+@pytest.mark.parametrize("mode", ["mono", "stereo"])
+def test_ba_window_and_loop_closure_equal_direct_calls(capsys, tmp_path, mode):
+    """``--ba-window 2 --keyframe-stride 1 --ba-iters 4 --loop-closure`` on
+    ``--synthetic 4 --synthetic-size 160x128 --device cpu`` (chunks of 2,
+    the test params): the summary gains the JAX CLI's ``ba_keyframes``,
+    ``ba_solves``, ``ba_iters_per_s`` and ``loops_accepted``, and the
+    trajectory file equals, bit for bit, the port's runner, then
+    ``refine_mono_trajectory``, then the mode's loop-closure function with a
+    generator seeded ``--seed`` + 1, called directly."""
+    from ergo_uvo_tpu_torch.config import load_vo_params
+    from ergo_uvo_tpu_torch.convert import stereo_rig_from_numpy
+    from ergo_uvo_tpu_torch.optim import (
+        close_loops_and_optimize,
+        close_loops_and_optimize_stereo,
+        refine_mono_trajectory,
+    )
+    from ergo_uvo_tpu_torch.pipeline import run_mono_vo, run_stereo_vo
+
+    params = tmp_path / "params.yaml"
+    params.write_text(PARAMS_YAML if mode == "mono" else STEREO_PARAMS_YAML)
+    out = tmp_path / "o.jsonl"
+    summary, _ = _run(capsys, [mode, "--synthetic", "4", "--synthetic-size", "160x128",
+                            "--device", "cpu", "--chunk-size", "2", "--params", str(params),
+                            "--ba-window", "2", "--keyframe-stride", "1", "--ba-iters", "4",
+                            "--loop-closure", "--out", str(out)])
+    assert summary["ba_keyframes"] == 3 and summary["ba_solves"] == 2
+    assert summary["ba_iters_per_s"] > 0 and summary["loops_accepted"] == 0
+    assert np.isfinite(summary["ate_m"]) and len(_records(out)) == 4
+
+    cfg = load_vo_params(str(params), stereo=mode == "stereo")
+    gen = torch.Generator().manual_seed(0)
+    kw = dict(window_size=2, keyframe_stride=1, ba_iters=4, device="cpu")
+    if mode == "mono":
+        seq = make_mono_sequence(n_frames=4, height=H, width=W)
+        _, outs = run_mono_vo(seq.imgs_left, seq.timestamps, seq.ranges, seq.K, cfg, gen,
+                              device="cpu")
+        outs = type(outs)(*(x.numpy() for x in outs))
+        ba = refine_mono_trajectory(seq.imgs_left, seq.timestamps, outs, seq.K, cfg, **kw)
+        pg = close_loops_and_optimize(seq.imgs_left, ba.R_wc, ba.t_wc, seq.ranges, seq.K, cfg,
+                                      generator=torch.Generator().manual_seed(1), device="cpu")
+    else:
+        seq = make_stereo_sequence(n_frames=4, height=H, width=W)
+        rig = stereo_rig_from_numpy(dict(
+            K_left=seq.K.astype(np.float32), K_right=seq.K.astype(np.float32),
+            R_right=np.eye(3, dtype=np.float32),
+            t_right=np.asarray([-0.33, 0.0, 0.0], np.float32)), "cpu")
+        _, outs = run_stereo_vo(seq.imgs_left, seq.imgs_right, seq.timestamps, rig, cfg, gen,
+                                device="cpu")
+        outs = type(outs)(*(x.numpy() for x in outs))
+        ba = refine_mono_trajectory(seq.imgs_left, seq.timestamps, outs, seq.K, cfg, **kw)
+        pg = close_loops_and_optimize_stereo(seq.imgs_left, seq.imgs_right, ba.R_wc, ba.t_wc, rig,
+                                             cfg, generator=torch.Generator().manual_seed(1),
+                                             device="cpu")
+    assert len(ba.kf_indices) == 3 and pg.loops == []
+    np.testing.assert_array_equal(np.loadtxt(tmp_path / "o_trajectory.txt"), pg.positions)

@@ -1,6 +1,6 @@
 """The SIFT, ORB and AKAZE frontends through the port's pipelines (CPU).
 
-* Stereo, SIFT: ``run_stereo_vo`` in both packages on 6 pairs of 160x120
+* Stereo, SIFT and AKAZE: ``run_stereo_vo`` in both packages on 6 pairs of 160x120
   (128 keypoints, 64 minimal sets; the size of tests/test_torch_stereo.py),
   the minimal sets injected through the ``sampler`` hook (JAX's sets of
   ``split(key, 6)[i]``): discrete outputs exact, floats to
@@ -102,17 +102,16 @@ def stereo_sampler(frame, method, mask, num_hypotheses, set_size):
     return torch.from_numpy(np.array(idx)), torch.from_numpy(np.array(valid))
 
 
-def test_run_stereo_vo_sift_matches_jax(stereo_seq):
-    """SIFT stereo against JAX ``run_stereo_vo`` frame by frame (two
-    matches a pair at D = 128): published, validity and every count exact;
-    velocity to 5e-3 m/s, t to 2e-3, R to 1e-3 (as tests/test_torch_stereo.py)."""
-    seq = stereo_seq
+def assert_stereo_matches_jax(seq, det):
+    """``run_stereo_vo`` under ``det`` in both packages, JAX's minimal sets
+    injected: published, validity and every count exact; velocity to 5e-3
+    m/s, t to 2e-3, R to 1e-3 (as tests/test_torch_stereo.py)."""
     rig = JStereoRig(**{k: jnp.asarray(v) for k, v in rig_np(seq).items()})
     _, ref = j_run_stereo_vo(jnp.asarray(seq.imgs_left), jnp.asarray(seq.imgs_right),
-                             jnp.asarray(seq.timestamps), rig, stereo_cfg(jconfig, "SIFT"), KEY)
+                             jnp.asarray(seq.timestamps), rig, stereo_cfg(jconfig, det), KEY)
     ref = host(ref)
     _, outs = run_stereo_vo(seq.imgs_left, seq.imgs_right, seq.timestamps,
-                            stereo_rig_from_numpy(rig_np(seq), "cpu"), stereo_cfg(tconfig, "SIFT"),
+                            stereo_rig_from_numpy(rig_np(seq), "cpu"), stereo_cfg(tconfig, det),
                             sampler=stereo_sampler, device="cpu")
     outs = host(outs)
     assert not ref.published[0] and ref.published[1:].all() and ref.validity[1:].all()
@@ -123,6 +122,19 @@ def test_run_stereo_vo_sift_matches_jax(stereo_seq):
     np.testing.assert_allclose(outs.velocity, ref.velocity, atol=5e-3)
     np.testing.assert_allclose(outs.t, ref.t, atol=2e-3)
     np.testing.assert_allclose(outs.R, ref.R, atol=1e-3)
+
+
+def test_run_stereo_vo_sift_matches_jax(stereo_seq):
+    """SIFT stereo against JAX ``run_stereo_vo`` frame by frame (two
+    matches a pair at D = 128)."""
+    assert_stereo_matches_jax(stereo_seq, "SIFT")
+
+
+def test_run_stereo_vo_akaze_matches_jax(stereo_seq):
+    """AKAZE stereo against JAX ``run_stereo_vo`` frame by frame (two
+    Hamming matches a pair at D = 512): the pipeline-level hold that the
+    module tests of tests/test_torch_akaze.py lack."""
+    assert_stereo_matches_jax(stereo_seq, "AKAZE")
 
 
 def test_batched_features_runner_sift_equals_run_mono_vo(mono_seq):

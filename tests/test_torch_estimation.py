@@ -7,6 +7,10 @@ outputs (inlier masks, the chosen method, success) must then match exactly,
 and (R, t) to 1e-4.  The JAX functions run eagerly under
 ``jax.disable_jit()``, which shares the per-op compiles across tests.
 
+Then ``optim/trajectory.py::verify_loop_candidate`` on a loop pair of
+``make_loop_sequence``, here because it runs this relative pose at the same
+shapes (a jitted JAX one compiles for minutes).
+
 Two scenes: a non-planar random 3-D scene, where the essential branch is
 preferred and accepted, and a planar one with the same parallax, where the
 8-point essential is degenerate, fails its gate, and the estimate falls
@@ -32,6 +36,16 @@ from ergo_uvo_tpu_torch.estimation.relative_pose import estimate_relative_pose a
 K = np.array([[400.0, 0, 320], [0, 400, 240], [0, 0, 1]], np.float32)
 N, H = 128, 64
 CFG = MonoVOConfig(max_keypoints=N, num_hypotheses=H)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Eager ops on these small images are faster on one thread than spread
+    over a shared host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def t(a):
@@ -170,3 +184,45 @@ def test_estimate_relative_pose_matches_jax(planar):
     # and the estimate is right, not only equal
     c = (np.trace(R_true.T @ tr.R.numpy()) - 1) / 2
     assert np.degrees(np.arccos(np.clip(c, -1, 1))) < 1.0
+
+
+def test_verify_loop_candidate_matches_jax():
+    """Mono loop verification on frames 0 and 19 of the 160x128 loop fixture
+    (a loop), the port's detections fed to both: match, relative pose with
+    JAX's key of the first verified candidate (``key, sub = split(key)``
+    from PRNGKey(0), then ``split(sub)`` into the two methods' keys),
+    triangulation, gates and range scale.  ok and the inlier count exact, R
+    to 1e-4, the metric t to 1e-3.  (JAX's jitted verification counts 49
+    inliers where its eager run and the port count 45: XLA reassociates the
+    LMEDS scores.)"""
+    from ergo_uvo_tpu.config import MonoVOConfig as JMonoVOConfig
+    from ergo_uvo_tpu.config import SurfConfig as JSurfConfig
+    from ergo_uvo_tpu.features.detector import Keypoints as JKeypoints
+    from ergo_uvo_tpu.optim.trajectory import verify_loop_candidate as j_verify
+    from ergo_uvo_tpu_torch.config import SurfConfig
+    from ergo_uvo_tpu_torch.features.frontend import detect_and_describe_cfg
+    from ergo_uvo_tpu_torch.io import make_loop_sequence
+    from ergo_uvo_tpu_torch.optim.trajectory import verify_loop_candidate as t_verify
+
+    seq = make_loop_sequence(n_frames=20, height=128, width=160, seed=2)
+    cfg_t = MonoVOConfig(surf=SurfConfig(min_hessian=60.0), max_keypoints=N, num_hypotheses=H)
+    cfg_j = JMonoVOConfig(surf=JSurfConfig(min_hessian=60.0), max_keypoints=N, num_hypotheses=H)
+    frames = []
+    for f in (0, 19):
+        kp, desc = detect_and_describe_cfg(t(seq.imgs_left[f]), cfg_t)
+        frames.append((kp, desc, JKeypoints(*(jnp.asarray(x.numpy()) for x in kp)),
+                       jnp.asarray(desc.numpy())))
+    (ti, di, ji, dji), (tj, dj, jj, djj) = frames
+    _, sub = jax.random.split(jax.random.PRNGKey(0))
+    keys = dict(zip(("essential", "homography"), jax.random.split(sub)))
+    Kl = seq.K.astype(np.float32)
+    with jax.disable_jit():
+        ref = [np.asarray(x) for x in j_verify(sub, ji.xy, ji.mask, dji, jj.xy, jj.mask, djj,
+                                               jnp.asarray(Kl), cfg_j, jnp.float32(5.0))]
+    got = [x.numpy() for x in t_verify(
+        ti.xy, ti.mask, di, tj.xy, tj.mask, dj, t(Kl), cfg_t, torch.tensor(5.0),
+        sampler=lambda method, m, h, s: jax_sampler(keys[method])(m, h, s))]
+    assert bool(ref[0]) and int(ref[3]) >= 20
+    assert bool(got[0]) == bool(ref[0]) and int(got[3]) == int(ref[3])
+    np.testing.assert_allclose(got[1], ref[1], atol=1e-4)
+    np.testing.assert_allclose(got[2], ref[2], atol=1e-3)

@@ -38,6 +38,16 @@ TOP2_SHAPES = [(512, 512, 64), (256, 256, 64), (37, 91, 64), (384, 200, 64),
                (8, 3, 128), (256, 512, 48)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Eager ops on these small images are faster on one thread than spread
+    over a shared host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(a):
     return torch.from_numpy(np.array(a))
 

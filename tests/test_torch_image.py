@@ -37,6 +37,16 @@ DIST = np.array([-0.25, 0.06, 1e-3, -5e-4])
 DIST_MAIN = np.array([-0.05, 0.01, 0.0, 0.0])
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Eager ops on these small images are faster on one thread than spread
+    over a shared host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def synthetic_image(h=480, w=640, channels=3, seed=7):
     """Smooth low-frequency pattern + texture, resembling seafloor imagery."""
     rng = np.random.default_rng(seed)

@@ -49,6 +49,16 @@ tpnp = importlib.import_module("ergo_uvo_tpu_torch.estimation.pnp")
 K = np.array([[400.0, 0, 320], [0, 400, 240], [0, 0, 1]], np.float32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Eager ops on these small images are faster on one thread than spread
+    over a shared host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(a):
     return torch.from_numpy(np.array(a))
 

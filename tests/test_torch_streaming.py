@@ -65,6 +65,16 @@ STEREO_CFG = tconfig.StereoVOConfig(surf=tconfig.SurfConfig(min_hessian=60.0, n_
 LENS_DISTORTION = np.array([-0.05, 0.01, 0.0, 0.0])
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Eager ops on these small images are faster on one thread than spread
+    over a shared host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def gen(seed=0):
     return torch.Generator().manual_seed(seed)
 
