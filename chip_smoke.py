@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port's paths (mono and stereo UVO, every detector) once on one NVIDIA GPU.
+"""Drive every path of the PyTorch / CUDA port (UVO, detectors, BA, dist/) once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It imports nothing of JAX or of
 ``ergo_uvo_tpu``; every check that fails raises, so any failure exits
 non-zero.  It writes only under ``build/chip_smoke/`` in the checkout.
-Twenty-three phases, one JSON line each (two detector phases and the
+Twenty-five phases, one JSON line each (two detector phases and the
 preprocessed slice print side lines):
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA;
@@ -91,10 +91,28 @@ preprocessed slice print side lines):
 22. cli_mono_opt and 23. cli_stereo_opt: the CLI as in 11 and 12 with
    ``--ba-window 6 --keyframe-stride 3 --ba-iters 12 --loop-closure``: the
    summary's ``ba_keyframes``, ``ba_solves``, ``ba_iters_per_s`` and
-   ``loops_accepted``, and the launches beyond the VO's.
+   ``loops_accepted``, and the launches beyond the VO's;
+24. dist_ba: a world of 1 on NCCL (one card; the cross-rank arithmetic is
+   held by the CPU tests on gloo worlds of 2 and 4):
+   ``tools/bench_scaling_2proc.py``'s problem (8 poses, 16,384 landmarks, 2
+   fixed poses, 30 LM iterations) through ``sharded_ba_solve`` on a 1-D mesh
+   and ``window_sharded_ba_solve`` on a (1, 1) mesh, each against
+   ``ba_solve`` on the same card arrays (costs to 1e-4 relative an
+   iteration, state to 2e-3) under ``torch.cuda.set_sync_debug_mode("error")``,
+   two ``dist.all_reduce`` calls an iteration counted; LM iterations/s by the
+   iteration-count slope (30 and 330), launches an iteration and the
+   device-idle share of each solver, and the time of one NCCL
+   ``all_reduce`` of the packed buffer; the group is destroyed at the end;
+25. dist_vo: a world of 1 on NCCL: ``run_mono_vo_batch`` under the main
+   path's config on 4 streams of 12 frames of 640x480
+   (``make_mono_sequence`` seeds 1-4) fed by ``shard_frame_batches``: 48
+   kernel launches, each stream equal to ``run_mono_vo`` with generator seed
+   ``seed + b`` bit for bit, each stream's validity and the velocity RMSE
+   over all streams held to the slice's bounds (each stream's RMSE
+   reported), frames/s.
 
-Then the kernel summary line (launches on every path) and, last,
-``{"ok": true, "device": ...}``.
+Then the card's ``nvidia-smi`` line again, the kernel summary line
+(launches on every path) and, last, ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -1238,10 +1256,10 @@ BA_POSES, BA_LANDMARKS, BA_ITERS, BA_ITERS_HI = 8, 512, 30, 330
 BA_TOL = {"costs_rtol": 1e-4, "final_cost_rtol": 2e-2, "state_atol": 2e-3}
 
 
-def _ba_scene(np):
-    """``bench.py::section_ba``'s scene: (K, obs (P, L, 2), R0, t0, X0, X)."""
+def _ba_scene(np, P=BA_POSES, L=BA_LANDMARKS):
+    """``bench.py::section_ba``'s scene, ``tools/bench_scaling.py::make_problem``
+    at other sizes: (K, obs (P, L, 2), R0, t0, X0, X)."""
     rng = np.random.default_rng(0)
-    P, L = BA_POSES, BA_LANDMARKS
     X = np.stack([rng.uniform(-3, 3, L), rng.uniform(-2, 2, L), rng.uniform(5, 9, L)],
                  -1).astype(np.float32)
     K = np.array([[300.0, 0, 160], [0, 300, 120], [0, 0, 1]], np.float32)
@@ -1490,6 +1508,205 @@ def phase_loop_closure(torch):
     return launches
 
 
+# The distributed layer on the card: a world of 1 on NCCL (one card).
+DIST_BA_POSES, DIST_BA_LANDMARKS = 8, 16384  # tools/bench_scaling_2proc.py's make_problem(8, 16384)
+DIST_BA_TOL = {"costs_rtol": 1e-4, "state_atol": 2e-3}
+DIST_VO_STREAMS, DIST_VO_FRAMES, DIST_VO_SEED = 4, 12, 0
+
+
+def _nccl_world_of_one(torch):
+    """Start a world of 1 on NCCL over ``tcp://localhost:<a free port>``; the card's device."""
+    import socket
+    from datetime import timedelta
+
+    from ergo_uvo_tpu_torch.dist import init_world
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    return init_world(0, 1, init_method=f"tcp://localhost:{port}", timeout=timedelta(seconds=120))
+
+
+def phase_dist_ba(torch):
+    """Landmark-sharded BA on a 1-D mesh and window BA on a (1, 1) mesh, on
+    NCCL, each against ``ba_solve`` on the same card arrays."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from ergo_uvo_tpu_torch.dist import (
+        make_mesh,
+        make_mesh_2d,
+        sharded_ba_solve,
+        window_sharded_ba_solve,
+    )
+    from ergo_uvo_tpu_torch.features import top2_matcher
+    from ergo_uvo_tpu_torch.optim.ba import BAProblem, ba_solve, reprojection_residuals
+
+    dev = _nccl_world_of_one(torch)
+    P, L = DIST_BA_POSES, DIST_BA_LANDMARKS
+    K, obs, Rs, ts, X0, _ = _ba_scene(np, P, L)
+    Kd, obs_d, R0, t0, Xd = (torch.as_tensor(a).to(dev) for a in (K, obs, Rs, ts, X0))
+    mask = torch.ones((P, L), dtype=torch.bool, device=dev)
+    mesh, mesh2 = make_mesh(), make_mesh_2d(1, 1)  # device=None: the card
+    check(dist.get_backend() == "nccl" and mesh.device_type == "cuda", "dist_ba: not an NCCL mesh")
+    solvers = {
+        "sharded": lambda n: sharded_ba_solve(mesh, Kd, obs_d, mask, R0, t0, Xd, iters=n,
+                                              num_fixed=2),
+        "window": lambda n: window_sharded_ba_solve(mesh2, Kd, obs_d, mask, R0, t0, Xd, iters=n,
+                                                    num_fixed=2),
+        "ba_solve": lambda n: ba_solve(BAProblem(Kd, obs_d, mask, 2), R0, t0, Xd, iters=n),
+    }
+    for solve in solvers.values():  # the communicator, cuSOLVER: outside every check and timing
+        solve(2)
+    torch.cuda.synchronize()
+
+    reduces = []
+    real_all_reduce = dist.all_reduce
+
+    def counted_all_reduce(*args, **kwargs):
+        reduces.append(1)
+        return real_all_reduce(*args, **kwargs)
+
+    top2_matcher.LAUNCHES = 0
+    dist.all_reduce = counted_all_reduce
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        results = {}
+        for name, solve in solvers.items():
+            del reduces[:]
+            results[name] = (solve(BA_ITERS), len(reduces))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        dist.all_reduce = real_all_reduce
+    torch.cuda.synchronize()
+    launches = top2_matcher.LAUNCHES
+
+    r, _, _ = reprojection_residuals(Kd, R0, t0, Xd, obs_d, mask)
+    start_cost = float((r * r).sum())
+    (ref_state, ref_costs), _ = results["ba_solve"]
+    ref = [x.cpu() for x in ref_state[:3]]
+    ref_costs = ref_costs.cpu()
+    line = {"phase": "dist_ba", "world_size": dist.get_world_size(), "backend": dist.get_backend(),
+            "poses": P, "landmarks": L, "num_fixed_poses": 2, "iters": BA_ITERS,
+            "start_cost": start_cost, "no_host_sync": True, "kernel_launches": launches,
+            "tolerances": DIST_BA_TOL, "slope_iters": [BA_ITERS, BA_ITERS_HI]}
+    for name, solve in solvers.items():
+        (state, costs), n_reduce = results[name]
+        state, costs = [x.cpu() for x in state[:3]], costs.cpu()
+
+        def seconds(n):
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            solve(n)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t_start
+
+        t_lo = min(seconds(BA_ITERS) for _ in range(2))
+        t_hi = min(seconds(BA_ITERS_HI) for _ in range(2))
+        wall_ms, device_ms, n_launch, syncs = _profile_launches(torch, lambda: solve(BA_ITERS))
+        line[name] = {
+            "costs_first_last": [float(costs[0]), float(costs[-1])],
+            "costs_max_rel_diff": float(((costs - ref_costs).abs() / ref_costs).max()),
+            "state_max_abs_diff": max(float((a - b).abs().max()) for a, b in zip(state, ref)),
+            "all_reduces_per_iter": n_reduce / BA_ITERS,
+            "lm_iters_per_s": (BA_ITERS_HI - BA_ITERS) / (t_hi - t_lo),
+            "seconds_lo_hi": [t_lo, t_hi], "profiled_wall_ms": wall_ms, "device_ms": device_ms,
+            "device_idle_share": 1.0 - device_ms / wall_ms,
+            "launches_per_iter": n_launch / BA_ITERS, "sync_calls_in_profile": syncs}
+    # One NCCL all_reduce of the sharded step's packed buffer: H_pp, b_p,
+    # S_corr, rhs_corr and the cost.
+    packed = torch.zeros(P * 36 + P * 6 + P * P * 36 + P * 6 + 1, device=dev)
+    line["packed_all_reduce"] = {"floats": packed.numel(),
+                                 "ms": _time_ms(torch, lambda: dist.all_reduce(packed))}
+    dist.destroy_process_group()
+    emit(line)
+    for name in ("sharded", "window"):
+        got = line[name]
+        check(got["costs_max_rel_diff"] <= DIST_BA_TOL["costs_rtol"]
+              and got["state_max_abs_diff"] <= DIST_BA_TOL["state_atol"],
+              f"dist_ba: {name} differs from ba_solve: costs {got['costs_max_rel_diff']}, "
+              f"state {got['state_max_abs_diff']}")
+        check(got["costs_first_last"][1] < 0.02 * start_cost,
+              f"dist_ba: {name} final cost {got['costs_first_last'][1]} >= 2% of {start_cost}")
+    check(line["sharded"]["all_reduces_per_iter"] == 2,
+          f"dist_ba: {line['sharded']['all_reduces_per_iter']} all_reduce calls an iteration")
+    check(launches == 0, f"dist_ba: the top-2 kernel launched {launches} times")
+    return launches
+
+
+def phase_dist_vo(torch):
+    """``run_mono_vo_batch`` on 4 streams of 12 frames of 640x480 (the main
+    path's config) over a 1-D NCCL mesh, fed by ``shard_frame_batches``; each
+    stream against ``run_mono_vo`` with generator seed ``seed + b``."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from ergo_uvo_tpu_torch.dist import make_mesh, run_mono_vo_batch, shard_frame_batches
+    from ergo_uvo_tpu_torch.features import top2_matcher
+    from ergo_uvo_tpu_torch.io import make_mono_sequence
+    from ergo_uvo_tpu_torch.io.sequence import ArraySource
+    from ergo_uvo_tpu_torch.pipeline.mono import run_mono_vo
+
+    dev = _nccl_world_of_one(torch)
+    B, T = DIST_VO_STREAMS, DIST_VO_FRAMES
+    seqs = [make_mono_sequence(n_frames=T, height=480, width=640, dt=0.05, seed=s)
+            for s in range(1, B + 1)]
+    cfg = _main_path_config()
+    # Global batch t holds frame t of every stream.
+    flat = [np.stack([getattr(q, f) for q in seqs], 1).reshape(B * T, *getattr(seqs[0], f).shape[1:])
+            for f in ("imgs_left", "timestamps", "ranges")]
+    mesh = make_mesh()
+    batches = list(shard_frame_batches(ArraySource(flat[0], flat[1], ranges=flat[2]), mesh, B))
+    imgs, tss, rgs = (torch.stack([b[i] for b in batches], 1) for i in range(3))
+    check(imgs.is_cuda and imgs.shape == (B, T, 480, 640), f"dist_vo: ingested {tuple(imgs.shape)}")
+
+    torch.cuda.synchronize()
+    top2_matcher.LAUNCHES = 0
+    t0 = time.perf_counter()
+    state, outs = run_mono_vo_batch(mesh, imgs, tss, rgs, seqs[0].K, cfg, seed=DIST_VO_SEED,
+                                    local=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = top2_matcher.LAUNCHES
+
+    equal, streams, sq_errs = [], [], []
+    for b, seq in enumerate(seqs):
+        gen = torch.Generator(dev).manual_seed(DIST_VO_SEED + b)
+        ref_state, ref_outs = run_mono_vo(seq.imgs_left, seq.timestamps, seq.ranges, seq.K, cfg, gen)
+        equal.append(all(torch.equal(getattr(outs, f)[b], getattr(ref_outs, f)) for f in outs._fields)
+                     and all(torch.equal(getattr(state, f)[b], getattr(ref_state, f))
+                             for f in state._fields))
+        host = {f: getattr(outs, f)[b].cpu().numpy() for f in ("velocity", "validity", "published")}
+        rmse, speed = _velocity_check(np, host, seq.velocities_prevcam, None)
+        val = host["validity"]
+        sq_errs.append(((host["velocity"][val].astype(np.float64) - seq.velocities_prevcam[val])**2)
+                       .sum(-1))
+        streams.append({"seed": b + 1, "valid_share": float(host["validity"][1:].mean()),
+                        "velocity_rmse": rmse, "mean_gt_speed": speed,
+                        "published": host["published"].astype(int).tolist(),
+                        "finite": bool(np.isfinite(host["velocity"]).all())})
+    # The batch's velocity RMSE over every stream's valid frames: one stream
+    # of 12 frames misses the slice's bound on its own (seed 2; PERF.md,
+    # section 6), as run_mono_vo does on it bit for bit.
+    pooled = float(np.sqrt(np.concatenate(sq_errs).mean()))
+    dist.destroy_process_group()
+    emit({"phase": "dist_vo", "world_size": 1, "backend": "nccl", "streams": B, "frames": T,
+          "height": 480, "width": 640, "max_keypoints": 512, "num_hypotheses": cfg.num_hypotheses,
+          "seed": DIST_VO_SEED, "kernel_launches": launches,
+          "frames_per_second": B * T / seconds, "ms_per_frame": 1e3 * seconds / (B * T),
+          "seconds": seconds, "streams_equal_run_mono_vo": equal, "per_stream": streams,
+          "velocity_rmse_all_streams": pooled, "valid_min": 0.7, "rmse_bound_x_speed": 0.35})
+    check(all(equal), f"dist_vo: streams equal to run_mono_vo: {equal}")
+    check(launches == B * T, f"dist_vo: {launches} kernel launches for {B * T} frames")
+    for st in streams:
+        check(st["finite"] and not st["published"][0] and all(st["published"][1:]),
+              f"dist_vo: stream {st['seed']} published {st['published']}")
+        check(st["valid_share"] >= 0.7, f"dist_vo: stream {st['seed']} valid on {st['valid_share']}")
+    speed = float(np.mean([st["mean_gt_speed"] for st in streams]))
+    check(pooled < 0.35 * speed, f"dist_vo: velocity RMSE {pooled} over the streams >= 0.35 x {speed}")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "ergo_uvo_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: ergo_uvo_tpu_torch/ not found beside this script; "
@@ -1498,7 +1715,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
 
-    phase_device(torch)
+    smi = phase_device(torch)
     import ergo_uvo_tpu_torch  # noqa: F401  (pins TF32 off before any kernel)
 
     phase_build()
@@ -1535,7 +1752,14 @@ def main() -> int:
     for mode in ("mono", "stereo"):
         paths[f"cli_{mode}_opt"] = phase_cli(torch, mode, opt=True)
         frames_by_path[f"cli_{mode}_opt"] = N_FRAMES
-    check(all(n > 0 for n in paths.values()), f"a path launched the kernel no time: {paths}")
+    # The distributed layer: BA launches no kernel (counted, 0); the batch
+    # runner once a frame of every stream.
+    paths["dist_ba"], frames_by_path["dist_ba"] = phase_dist_ba(torch), DIST_BA_POSES
+    paths["dist_vo"] = phase_dist_vo(torch)
+    frames_by_path["dist_vo"] = DIST_VO_STREAMS * DIST_VO_FRAMES
+    check(all(n > 0 for k, n in paths.items() if k != "dist_ba"),
+          f"a path launched the kernel no time: {paths}")
+    print(smi, flush=True)  # the card again, beside the summary at the end of the output
     emit({"kernels": [{"name": "top2_distances", "route": "cuda", "source": KERNEL_SOURCE,
                        "replaces": KERNEL_REPLACES, "launches": launches,
                        "launches_per_frame": launches / N_FRAMES,

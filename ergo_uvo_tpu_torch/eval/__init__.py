@@ -1,4 +1,8 @@
-"""Trajectory evaluation of the port: ATE / RPE (a numpy copy of ``ergo_uvo_tpu/eval/``'s ``ate.py``)."""
+"""Trajectory evaluation of the port: ATE / RPE (a numpy copy of ``ergo_uvo_tpu/eval/``'s ``ate.py``).
+
+``reference_oracle`` (numpy + cv2, the OpenCV re-execution of the reference)
+is imported by its path, as in the JAX package.
+"""
 
 from ergo_uvo_tpu_torch.eval.ate import (  # noqa: F401
     ate_rmse,

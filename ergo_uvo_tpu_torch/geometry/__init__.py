@@ -47,3 +47,11 @@ from ergo_uvo_tpu_torch.geometry.triangulation import (  # noqa: F401
     transform_points,
     triangulate_points,
 )
+from ergo_uvo_tpu_torch.geometry.geodesy import (  # noqa: F401
+    WGS84_A,
+    WGS84_F,
+    ll_to_ne,
+    lld_to_ned,
+    ne_to_ll,
+    ned_to_lld,
+)

@@ -1,5 +1,5 @@
 """Auxiliary subsystems of the port (SURVEY.md §5): checkpointing, profiling,
-records, numerical checks.  ``utils/visualize.py`` is not ported yet."""
+records, numerical checks, match visualization."""
 
 from ergo_uvo_tpu_torch.utils.checkpoint import (  # noqa: F401
     restore_state,
@@ -13,3 +13,8 @@ from ergo_uvo_tpu_torch.utils.profiling import (  # noqa: F401
     trace,
 )
 from ergo_uvo_tpu_torch.utils.records import RunRecorder  # noqa: F401
+from ergo_uvo_tpu_torch.utils.visualize import (  # noqa: F401
+    draw_matches,
+    dump_matches,
+    save_image,
+)
