@@ -6,12 +6,14 @@
 Run from the root of a checkout.  It imports nothing of JAX or of
 ``ergo_uvo_tpu``; every check that fails raises, so any failure exits
 non-zero.  It writes only under ``build/chip_smoke/`` in the checkout.
-Twenty-five phases, one JSON line each (two detector phases and the
+Twenty-eight phases, one JSON line each (two detector phases and the
 preprocessed slice print side lines):
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build: nvcc builds ``ergo_uvo_tpu_torch/csrc/top2_distances.cu`` from the
-   checkout's sources into ``build/`` (seconds, ptxas register report);
+2. build: nvcc builds ``ergo_uvo_tpu_torch/csrc/top2_distances.cu`` and
+   ``ergo_uvo_tpu_torch/csrc/jacobi_eigh.cu`` from the checkout's sources
+   into ``build/``, one nvcc a source, both started together (seconds,
+   ptxas register and spill report of each);
 3. kernel: the top-2 kernel against its plain PyTorch version on the card at
    the main path's shape, the contract shapes and the edge cases (empty and
    masked slices, duplicates across cluster ranks, a depth that is no
@@ -25,24 +27,41 @@ preprocessed slice print side lines):
    ``torch.topk``), per call between CUDA events (median of 100 calls after
    10 warm-ups) and as device time of the call's kernels under
    torch.profiler (mean of 20 calls), beside the card's bound for the shape;
-4. slice: ``run_mono_vo`` on 24 synthetic 640x480 frames under the main
-   path's config (SURF, 512 keypoints, 512 hypotheses, LMEDS), counting the
-   kernel's launches, checking the outputs against ground truth, and timing
+4. jacobi: the Jacobi kernel against its plain PyTorch version on the card,
+   bit for bit (NaN where NaN), at (1, 9, 9), (512, 9, 9), P3P's (512, 3,
+   3, 3), (512, 12, 12), a batch of 0 and the edge cases (random SPD, a
+   diagonal matrix, signed zeros, a repeated eigenvalue, zero matrices, a
+   rank-deficient 12x12, NaN and inf in 9x9 and in P3P's pencils), the input
+   left as it was; CUDA inputs it cannot take raise; then at the four shapes
+   the time of the kernel, of the plain version and of
+   ``torch.linalg.eigh``, per call between CUDA events and as device time
+   under torch.profiler, beside the card's bound;
+5. slice: ``run_mono_vo`` on 24 synthetic 640x480 frames under the main
+   path's config (SURF, 512 keypoints, 512 hypotheses, LMEDS), counting both
+   kernels' launches (the Jacobi kernel at least once a frame and twice an
+   essential frame), checking the outputs against ground truth, and timing
    frames 2..23;
-5. preprocess: ``preprocess_frame`` (undistort under distortion
+6. mono_stages: frames 12 and 13 of the slice's run taken apart (one
+   prefers the homography, one the essential matrix; detect + describe,
+   match, the relative pose, ``find_essential``, ``find_homography``, the
+   Sampson Gauss-Newton, each Jacobi solve of the relative pose through the
+   kernel and the plain version, triangulate + gates), then both under
+   torch.profiler (device time, launches, idle share);
+7. preprocess: ``preprocess_frame`` (undistort under distortion
    [-0.05, 0.01, 0, 0], CLAHE 3.0) on the same 24 frames on the card: range,
    agreement with the same call on the CPU, ms per frame between CUDA events;
-6. slice_preprocessed: ``preprocess_frame`` then ``run_mono_vo`` with the
+8. slice_preprocessed: ``preprocess_frame`` then ``run_mono_vo`` with the
    plan's camera, on frames seen through a lens with that distortion, with
    the slice's checks and timing (and two 12-frame side runs: undistorted
    only, and the pinhole frames under the plan, reported unchecked);
-7. slice_batched: ``run_mono_vo_batched_features`` on the first 12 gray
+9. slice_batched: ``run_mono_vo_batched_features`` on the first 12 gray
    frames with the slice's generator seed; its outputs must equal the slice's;
-8. slice_stereo: ``run_stereo_vo`` on 24 synthetic 640x480 pairs (SURF, 512
+10. slice_stereo: ``run_stereo_vo`` on 24 synthetic 640x480 pairs (SURF, 512
    keypoints, 512 minimal sets, P3P + PnP RANSAC): two kernel launches a
-   frame, the outputs against ground truth, frames 2..23 timed, then the
-   stages of one frame timed apart and two frames under torch.profiler;
-9. stream_mono: ``run_mono_vo_streaming`` over the 24 frames of
+   frame and one Jacobi launch (P3P), the outputs against ground truth,
+   frames 2..23 timed, then the stages of one frame timed apart and two
+   frames under torch.profiler;
+11. stream_mono: ``run_mono_vo_streaming`` over the 24 frames of
    ``slice_undistorted`` (seen through the lens, its plan) from an
    ``ArraySource`` in chunks of 8: one kernel launch a frame, the outputs
    and final state equal ``preprocess_frame`` then ``run_mono_vo`` with the
@@ -51,48 +70,53 @@ preprocessed slice print side lines):
    the checkpoint in chunks of 5 (10 frames): outputs and final state equal
    the uninterrupted run's bit for bit; frames/s, ms per frame (stream and
    bulk, same frames), the time of a checkpoint write;
-10. stream_stereo: the same for the 24 pairs of ``slice_stereo`` under two
+12. stream_stereo: the same for the 24 pairs of ``slice_stereo`` under two
    plans without distortion or CLAHE: two launches a frame;
-11. cli_mono and 12. cli_stereo: ``ergo_uvo_tpu_torch.cli.main`` on 24
+13. cli_mono and 14. cli_stereo: ``ergo_uvo_tpu_torch.cli.main`` on 24
    synthetic 640x480 frames (pairs), the main paths' configs through
    ``--params``, chunks of 8, no ``--device``: valid == published on frames
    1..23, a finite ATE, every chunk's outputs on the card when read back,
    the launches a frame, and the CLI's summary;
-13.-15. slice_sift, slice_orb, slice_akaze: ``bench.py``'s detector configs
+15. plain_jacobi: the first 12 frames of ``slice`` and of ``slice_stereo``
+   through the kernel, then with ``jacobi_eigh_reference`` patched in from
+   here (``linalg.jacobi_eigh``, ``p3p.jacobi_eigh``): no Jacobi launch in
+   the patched runs, every output field equal bit for bit, ms per frame of
+   both;
+16.-18. slice_sift, slice_orb, slice_akaze: ``bench.py``'s detector configs
    (512 keypoints, 512 hypotheses) on the slice's 24 frames, ORB through
    ``run_mono_vo_batched_features``: 24 launches (D = 128, 256, 512), the
    outputs against ground truth and against the JAX package's CPU run of
    the same frames (medians over generator seeds 0-4), and one frame's
    frontend timed, profiled and run under
    ``torch.cuda.set_sync_debug_mode("error")``;
-16. accuracy_sift and 17. accuracy_stereo_sift: ``bench.py::section_parity``'s
+19. accuracy_sift and 20. accuracy_stereo_sift: ``bench.py::section_parity``'s
    SIFT configs and sequences (mono: 3 seeds of 24 frames of 320x240;
    stereo: 2 seeds of 16 pairs), mean velocity RMSE and ATE held to bounds
    set from the port's own CPU run, beside the JAX package's figures;
-18. cli_mono_sift: the CLI as in 11 with ``feature_detector: SIFT``;
-19. ba: ``bench.py::section_ba``'s window BA problem (8 poses, 512
+21. cli_mono_sift: the CLI as in 13 with ``feature_detector: SIFT``;
+22. ba: ``bench.py::section_ba``'s window BA problem (8 poses, 512
    landmarks, 2 fixed poses) through ``ba_solve``: 30 LM iterations under
    ``torch.cuda.set_sync_debug_mode("error")``, the final cost against the
    starting one, the fixed poses, the card's result against the port's CPU
    run of the same arrays; LM iterations/s by the iteration-count slope
    (30 and 330), launches an iteration and the device-idle share under
    torch.profiler;
-20. trajectory_ba: ``tests/test_trajectory.py``'s fixture (36 frames of
+23. trajectory_ba: ``tests/test_trajectory.py``'s fixture (36 frames of
    320x240, the starved VO config) through ``run_mono_vo`` then
    ``refine_mono_trajectory`` (window 6, stride 2, 12 iterations): its
    gates (ATE below 0.7x the raw one, non-increasing cost curves), the
    kernel's launches (one a window member but the anchor) and
    ``ba_iters_per_s``;
-21. loop_closure: ``close_loops_and_optimize`` on ``make_loop_sequence(20,
+24. loop_closure: ``close_loops_and_optimize`` on ``make_loop_sequence(20,
    240, 320, seed=2)`` with the test's drift: a loop with j - i >= 12
    accepted, the endpoint error shrunk 5x, the candidates verified; the
    pose graph of its loops run twice on the card and once on the CPU,
    within 1e-3 m (its scatter-adds are atomic on the card);
-22. cli_mono_opt and 23. cli_stereo_opt: the CLI as in 11 and 12 with
+25. cli_mono_opt and 26. cli_stereo_opt: the CLI as in 13 and 14 with
    ``--ba-window 6 --keyframe-stride 3 --ba-iters 12 --loop-closure``: the
    summary's ``ba_keyframes``, ``ba_solves``, ``ba_iters_per_s`` and
    ``loops_accepted``, and the launches beyond the VO's;
-24. dist_ba: a world of 1 on NCCL (one card; the cross-rank arithmetic is
+27. dist_ba: a world of 1 on NCCL (one card; the cross-rank arithmetic is
    held by the CPU tests on gloo worlds of 2 and 4):
    ``tools/bench_scaling_2proc.py``'s problem (8 poses, 16,384 landmarks, 2
    fixed poses, 30 LM iterations) through ``sharded_ba_solve`` on a 1-D mesh
@@ -103,7 +127,7 @@ preprocessed slice print side lines):
    iteration-count slope (30 and 330), launches an iteration and the
    device-idle share of each solver, and the time of one NCCL
    ``all_reduce`` of the packed buffer; the group is destroyed at the end;
-25. dist_vo: a world of 1 on NCCL: ``run_mono_vo_batch`` under the main
+28. dist_vo: a world of 1 on NCCL: ``run_mono_vo_batch`` under the main
    path's config on 4 streams of 12 frames of 640x480
    (``make_mono_sequence`` seeds 1-4) fed by ``shard_frame_batches``: 48
    kernel launches, each stream equal to ``run_mono_vo`` with generator seed
@@ -111,8 +135,8 @@ preprocessed slice print side lines):
    over all streams held to the slice's bounds (each stream's RMSE
    reported), frames/s.
 
-Then the card's ``nvidia-smi`` line again, the kernel summary line
-(launches on every path) and, last, ``{"ok": true, "device": ...}``.
+Then the card's ``nvidia-smi`` line again, the kernel summary line (both
+kernels' launches on every path) and, last, ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -144,6 +168,30 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: check failed: {what}")
 
 
+# Each path's launches of the Jacobi kernel, by the path's phase name; the
+# top-2 kernel's come back from the phases themselves.
+JACOBI_BY_PATH: dict[str, int] = {}
+
+
+def _zero_counts() -> None:
+    """Set every kernel's launch count to 0, just before a path is driven."""
+    from ergo_uvo_tpu_torch.features import top2_matcher
+    from ergo_uvo_tpu_torch.geometry import linalg
+
+    top2_matcher.LAUNCHES = 0
+    linalg.LAUNCHES = 0
+
+
+def _read_counts(path: str) -> int:
+    """Read every count just after the path ran: the Jacobi kernel's goes to
+    ``JACOBI_BY_PATH[path]``, the top-2 kernel's is returned."""
+    from ergo_uvo_tpu_torch.features import top2_matcher
+    from ergo_uvo_tpu_torch.geometry import linalg
+
+    JACOBI_BY_PATH[path] = linalg.LAUNCHES
+    return top2_matcher.LAUNCHES
+
+
 def phase_device(torch):
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
@@ -159,16 +207,24 @@ def phase_device(torch):
 
 
 def phase_build():
+    """Build every kernel from the checkout's sources, one nvcc a source, all
+    started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from ergo_uvo_tpu_torch.cuda_build import BUILD_INFO, load_library
 
+    stems = ("top2_distances", "jacobi_eigh")
     t0 = time.perf_counter()
-    load_library("top2_distances")
+    with ThreadPoolExecutor(len(stems)) as pool:
+        list(pool.map(load_library, stems))
     seconds = time.perf_counter() - t0
-    nvcc_seconds, log = BUILD_INFO["top2_distances"]
-    ptxas = [line.strip() for line in log.splitlines()
-             if "registers" in line or "spill" in line or "Compiling entry" in line]
-    emit({"phase": "build", "kernel": "top2_distances", "seconds": seconds,
-          "nvcc_seconds": nvcc_seconds, "ptxas": ptxas})
+    kernels = {}
+    for stem in stems:
+        nvcc_seconds, log = BUILD_INFO[stem]
+        kernels[stem] = {"nvcc_seconds": nvcc_seconds, "ptxas": [
+            line.strip() for line in log.splitlines()
+            if "registers" in line or "spill" in line or "Compiling entry" in line]}
+    emit({"phase": "build", "seconds": seconds, "kernels": kernels})
 
 
 def _unit(torch, n, d, seed, dev):
@@ -396,6 +452,147 @@ def phase_kernel(torch):
     return max_err, timings
 
 
+JACOBI_SOURCE = "ergo_uvo_tpu_torch/csrc/jacobi_eigh.cu"
+JACOBI_REPLACES = "ergo_uvo_tpu/geometry/linalg.py:21"
+JACOBI_SWEEPS = 7
+# (name, n) of the timed inputs: a refit, the 8-point solve of 512
+# hypotheses, P3P's (512, 3, 3, 3) pencils, 512 DLT normal matrices.
+JACOBI_TIMED = [("1x9x9", 9), ("512x9x9", 9), ("1536x3x3", 3), ("512x12x12", 12)]
+JACOBI_MAIN = "512x9x9"
+
+
+def _jacobi_bound(batch, n, sweeps=JACOBI_SWEEPS):
+    """The least time the card could take: per rotation 18 n + 15 fp32
+    operations (the rows, the columns and V: 6 n each; the rotation's
+    scalars: 15), n (n - 1) / 2 rotations a sweep; each matrix read once,
+    n eigenvalues and n^2 eigenvector entries written once."""
+    ops = batch * sweeps * n * (n - 1) // 2 * (18 * n + 15)
+    ops_ms = 1e3 * ops / PEAK_FP32_FLOPS
+    bytes_ms = 1e3 * 4.0 * batch * (2 * n * n + n) / PEAK_BYTES_PER_S
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_operations_ms": ops_ms, "bound_bytes_ms": bytes_ms, "operations": ops}
+
+
+def _jacobi_inputs(torch, dev):
+    """name -> float32 (..., n, n) on the card: the timed inputs (the paths'
+    kinds of matrix), then the edge cases."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=g)
+
+    def gram(b, rows, n):  # B^T B of `rows` constraint rows: rank min(rows, n)
+        B = normal(b, rows, n)
+        return B.transpose(-1, -2) @ B
+
+    def pencil(*lead):  # symmetric indefinite, as D1 + root * D2
+        M = normal(*lead, 3, 3)
+        return M + M.transpose(-1, -2)
+
+    def spectrum(w):  # Q diag(w) Q^T
+        Q, _ = torch.linalg.qr(normal(len(w), len(w)).double())
+        return ((Q * torch.tensor(w, dtype=torch.float64)) @ Q.T)[None].float()
+
+    cases = {"1x9x9": gram(1, 200, 9), "512x9x9": gram(512, 8, 9), "1536x3x3": pencil(512, 3),
+             "512x12x12": gram(512, 12, 12)}
+    cases["0x9x9"] = torch.zeros(0, 9, 9)
+    cases["spd_9"] = (lambda M: M @ M.transpose(-1, -2) + torch.eye(9))(normal(16, 9, 9))
+    cases["diagonal_9"] = torch.diag(torch.tensor([3.0, -1.0, 7.0, 0.5, 2.0, -4.0, 1.5, 9.0, 0.25]))[None]
+    cases["signed_zeros_9"] = torch.diag(torch.tensor([2.0, -0.0, 0.0, -1.0, -0.0, 3.0, 0.0, 1.0, -2.0]))[None]
+    cases["repeated_9"] = spectrum([1.0, 1.0, 1.0, 2.0, 3.0, 3.0, 5.0, 8.0, 13.0])
+    cases["zero_3"] = torch.zeros(2, 3, 3)
+    cases["rank_deficient_12"] = gram(8, 11, 12)
+    nan9 = gram(4, 20, 9)
+    nan9[1, 2, 5] = nan9[1, 5, 2] = float("nan")
+    nan9[2, 4, 4] = float("nan")
+    nan9[3, 0, 0] = float("inf")
+    cases["nan_inf_9"] = nan9
+    p3p = pencil(6, 3)
+    p3p[1, 2] = float("nan")  # a NaN root: its whole pencil is NaN
+    p3p[3, 0, 1, 2] = p3p[3, 0, 2, 1] = float("inf")
+    p3p[4, 1, 1, 1] = -float("inf")
+    cases["nan_inf_6x3x3x3"] = p3p
+    return {k: v.contiguous().to(dev) for k, v in cases.items()}
+
+
+def _ordered(torch, x):
+    """float32 bits as integers in the order of the values (-0 just below +0)."""
+    i = x.contiguous().view(torch.int32).long()
+    return torch.where(i < 0, -(i & 0x7FFFFFFF) - 1, i)
+
+
+def _bit_compare(torch, got, ref):
+    """(bit equal with NaN where NaN, largest difference in ulps and in value
+    over the entries finite in both)."""
+    nan_same = torch.equal(torch.isnan(got), torch.isnan(ref))
+    fin = torch.isfinite(got) & torch.isfinite(ref)
+    ulps = int((_ordered(torch, got) - _ordered(torch, ref))[fin].abs().max()) if bool(fin.any()) else 0
+    err = float((got - ref)[fin].abs().max()) if bool(fin.any()) else 0.0
+    other = ~torch.isnan(got)
+    bits = nan_same and torch.equal(got.view(torch.int32)[other], ref.view(torch.int32)[other])
+    return bits, ulps, err
+
+
+def phase_jacobi(torch):
+    """The Jacobi kernel against its plain version on the card, then timed."""
+    from ergo_uvo_tpu_torch.geometry import linalg
+
+    dev = torch.device("cuda")
+    cases = _jacobi_inputs(torch, dev)
+    results, max_err, max_ulps = [], 0.0, 0
+    for name, A in cases.items():
+        keep = A.clone()
+        before = linalg.LAUNCHES
+        w, v = linalg.jacobi_eigh(A)
+        launched = linalg.LAUNCHES - before
+        rw, rv = linalg.jacobi_eigh_reference(A)
+        torch.cuda.synchronize()
+        (wb, wu, we), (vb, vu, ve) = _bit_compare(torch, w, rw), _bit_compare(torch, v, rv)
+        max_err, max_ulps = max(max_err, we, ve), max(max_ulps, wu, vu)
+        results.append({"case": name, "shape": list(A.shape), "launches": launched,
+                        "bit_equal": wb and vb, "max_ulps": max(wu, vu), "max_abs_err": max(we, ve),
+                        "input_kept": _bit_compare(torch, A, keep)[0]})
+    line = {"phase": "jacobi", "sweeps": JACOBI_SWEEPS, "cases": results,
+            "max_abs_err": max_err, "max_ulps": max_ulps}
+    for r in results:
+        check(r["bit_equal"], f"jacobi: {r['case']}: the kernel differs from the plain version "
+                              f"by {r['max_ulps']} ulps ({r['max_abs_err']})")
+        check(r["input_kept"], f"jacobi: {r['case']}: the input was written")
+        check(r["launches"] == (0 if r["shape"][0] == 0 else 1),
+              f"jacobi: {r['case']}: {r['launches']} launches")
+    for bad in (torch.zeros(2, 4, 4, device=dev), torch.zeros(2, 9, 9, device=dev, dtype=torch.float64)):
+        try:
+            linalg.jacobi_eigh(bad)
+        except (TypeError, ValueError):
+            continue
+        check(False, f"jacobi: a CUDA input of shape {tuple(bad.shape)}, {bad.dtype} did not raise")
+
+    timings = {}
+    for name, n in JACOBI_TIMED:
+        A = cases[name]
+        kernel = lambda: linalg.jacobi_eigh(A)  # noqa: E731
+        plain = lambda: linalg.jacobi_eigh_reference(A)  # noqa: E731
+        lib = lambda: torch.linalg.eigh(A)  # noqa: E731
+        batch = A.numel() // (n * n)
+        row = {"shape": name, "batch": batch, "n": n,
+               "ms": _time_ms(torch, kernel), "device_ms": _device_ms(torch, kernel),
+               # ~50 launches a rotation: a few calls suffice
+               "plain_ms": _time_ms(torch, plain, warmup=1, runs=3),
+               "plain_device_ms": _device_ms(torch, plain, runs=1),
+               "library": "torch.linalg.eigh",
+               "library_ms": _time_ms(torch, lib), "library_device_ms": _device_ms(torch, lib)}
+        row.update(_jacobi_bound(batch, n))
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        timings[name] = row
+    line["timings"] = list(timings.values())
+    emit(line)
+    main = timings[JACOBI_MAIN]
+    check(main["device_ms"] < main["plain_device_ms"],
+          f"jacobi: kernel device time {main['device_ms']} ms is not below the plain version's "
+          f"{main['plain_device_ms']} ms at {JACOBI_MAIN}")
+    return max_err, timings
+
+
 def _main_path_config():
     from ergo_uvo_tpu_torch.config import MonoVOConfig, SurfConfig
 
@@ -438,14 +635,12 @@ def _mono_phase(torch, phase, runner, imgs, K, seq, n_frames, extra=None, rmse_b
     """
     import numpy as np
 
-    from ergo_uvo_tpu_torch.features import top2_matcher
-
     dev = torch.device("cuda")
     cfg = cfg or _main_path_config()
     ts, rg = seq.timestamps, seq.ranges
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    top2_matcher.LAUNCHES = 0
+    _zero_counts()
     state, head = runner(imgs[:2], ts[:2], rg[:2], K, cfg, gen)
     rest = [torch.as_tensor(x[2:n_frames]).to(dev) for x in (imgs, ts, rg)]
     torch.cuda.synchronize()
@@ -453,11 +648,18 @@ def _mono_phase(torch, phase, runner, imgs, K, seq, n_frames, extra=None, rmse_b
     state, tail = runner(*rest, K, cfg, gen, state=state)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = top2_matcher.LAUNCHES
+    launches = _read_counts(phase)
 
     outs = {f: np.concatenate([getattr(head, f).cpu().numpy(), getattr(tail, f).cpu().numpy()])
             for f in head._fields}
     check(launches >= n_frames - 1, f"kernel launched {launches} times in {n_frames} frames")
+    # A frame solves once a branch it runs: the essential branch twice (the
+    # 8-point solve, its refit), the homography branch once.
+    jacobi = JACOBI_BY_PATH[phase]
+    n_essential = int(outs["used_essential"].sum())
+    check(jacobi >= n_frames - 1 + n_essential,
+          f"{phase}: the Jacobi kernel launched {jacobi} times in {n_frames} frames, "
+          f"{n_essential} of them essential")
     check(all(x.is_cuda for x in tail), f"{phase}: the runner's outputs are not on the card")
     for f in ("velocity", "R", "t", "scale_factor", "median_disparity"):
         check(bool(np.isfinite(outs[f]).all()), f"{f} has non-finite values")
@@ -469,6 +671,7 @@ def _mono_phase(torch, phase, runner, imgs, K, seq, n_frames, extra=None, rmse_b
     timed = n_frames - 2
     emit({"phase": phase, "frames": n_frames, "height": 480, "width": 640,
           "max_keypoints": 512, "num_hypotheses": cfg.num_hypotheses, "kernel_launches": launches,
+          "jacobi_launches": jacobi,
           "rmse_bound_x_speed": rmse_bound, "valid_min": valid_min,
           "launches_per_frame": launches / n_frames,
           "frames_per_second": timed / seconds, "ms_per_frame": 1e3 * seconds / timed,
@@ -711,7 +914,6 @@ def phase_slice_stereo(torch):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from ergo_uvo_tpu_torch.features import top2_matcher
     from ergo_uvo_tpu_torch.io import make_stereo_sequence
     from ergo_uvo_tpu_torch.pipeline import run_stereo_vo
 
@@ -722,7 +924,7 @@ def phase_slice_stereo(torch):
     il, ir, ts = seq.imgs_left, seq.imgs_right, seq.timestamps
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    top2_matcher.LAUNCHES = 0
+    _zero_counts()
     # Frames 0-1 untimed through numpy inputs and no device (the card by
     # default), frames 2..23 timed with inputs already on the card.
     state, head = run_stereo_vo(il[:2], ir[:2], ts[:2], rig, cfg, gen)
@@ -732,12 +934,15 @@ def phase_slice_stereo(torch):
     state, tail = run_stereo_vo(*rest, rig, cfg, gen, state=state)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = top2_matcher.LAUNCHES
+    launches = _read_counts("slice_stereo")
 
     outs = {f: np.concatenate([getattr(head, f).cpu().numpy(), getattr(tail, f).cpu().numpy()])
             for f in head._fields}
     check(launches == 2 * N_FRAMES,
           f"kernel launched {launches} times in {N_FRAMES} stereo frames, expected 2 a frame")
+    check(JACOBI_BY_PATH["slice_stereo"] == N_FRAMES,
+          f"the Jacobi kernel launched {JACOBI_BY_PATH['slice_stereo']} times in {N_FRAMES} "
+          "stereo frames, expected 1 a frame (P3P)")
     check(all(x.is_cuda for x in tail) and all(x.is_cuda for x in state),
           "run_stereo_vo's outputs are not on the card")
     for f in ("velocity", "R", "t"):
@@ -769,6 +974,7 @@ def phase_slice_stereo(torch):
     timed = N_FRAMES - 2
     emit({"phase": "slice_stereo", "frames": N_FRAMES, "height": 480, "width": 640,
           "max_keypoints": 512, "num_hypotheses": 512, "kernel_launches": launches,
+          "jacobi_launches": JACOBI_BY_PATH["slice_stereo"],
           "launches_per_frame": launches / N_FRAMES,
           "frames_per_second": timed / seconds, "ms_per_frame": 1e3 * seconds / timed,
           "velocity_rmse": rmse, "mean_gt_speed": speed, "valid_share": valid_share,
@@ -781,6 +987,191 @@ def phase_slice_stereo(torch):
                        "device_ms_per_frame": device_us / 2e3,
                        "cuda_launch_calls_per_frame": n_launch / 2}})
     return launches
+
+
+def _mono_stages(torch, state, img, K, cfg):
+    """The stages of one steady mono frame, each timed apart (wall time, the
+    card drained around it, median of 5), and each Jacobi solve of its
+    relative pose timed apart on the input the frame gave it, through the
+    kernel and through the plain version."""
+    from ergo_uvo_tpu_torch.estimation.essential import _normalized, find_essential, gn_refine_essential
+    from ergo_uvo_tpu_torch.estimation.homography import find_homography
+    from ergo_uvo_tpu_torch.estimation.relative_pose import (
+        estimate_relative_pose,
+        select_estimation_method,
+    )
+    from ergo_uvo_tpu_torch.features.frontend import detect_and_describe_cfg
+    from ergo_uvo_tpu_torch.features.matcher import match_descriptors
+    from ergo_uvo_tpu_torch.geometry import linalg
+    from ergo_uvo_tpu_torch.geometry.camera import projection_matrix
+    from ergo_uvo_tpu_torch.geometry.triangulation import filter_3d_points, triangulate_points
+
+    dev = img.device
+    detect_ms, (kp, desc) = _sync_ms(torch, lambda: detect_and_describe_cfg(img, cfg))
+    match_ms, m = _sync_ms(torch, lambda: match_descriptors(state.prev_desc, state.prev_mask, desc,
+                                                            kp.mask, cfg.lowe_ratio_test))
+    xy1 = torch.where(m.mask[:, None], state.prev_xy, 0.0)
+    xy2 = torch.where(m.mask[:, None], kp.xy[m.idx.long()], 0.0)
+    gen = lambda: torch.Generator(device=dev).manual_seed(1)  # noqa: E731
+
+    def pose():
+        return estimate_relative_pose(xy1, xy2, m.mask, K, cfg, state.R, state.t, gen())
+
+    solves, real = [], linalg.jacobi_eigh
+
+    def recording(A, sweeps=7):
+        solves.append(A.clone())
+        return real(A, sweeps)
+
+    linalg.jacobi_eigh = recording
+    try:
+        pose()
+    finally:
+        linalg.jacobi_eigh = real
+    pose_ms, res = _sync_ms(torch, pose)
+    ess = cfg.essential
+    essential_ms, (E, inl) = _sync_ms(torch, lambda: find_essential(
+        xy1, xy2, m.mask, K, ess.outlier_method, ess.threshold, cfg.num_hypotheses, gen()))
+    hom = cfg.homography
+    homography_ms, _ = _sync_ms(torch, lambda: find_homography(
+        xy1, xy2, m.mask, hom.outlier_method, hom.threshold, cfg.num_hypotheses, gen()))
+    x1, x2 = _normalized(K, xy1), _normalized(K, xy2)
+    gn_ms, _ = _sync_ms(torch, lambda: gn_refine_essential(E, x1, x2, inl.to(x1.dtype)))
+    solve_rows = [{"shape": list(A.shape),
+                   "kernel_ms": _sync_ms(torch, lambda A=A: linalg.jacobi_eigh(A))[0],
+                   "plain_ms": _sync_ms(torch, lambda A=A: linalg.jacobi_eigh_reference(A), runs=3)[0]}
+                  for A in solves]
+    eye3, zero3 = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+
+    def triangulate():
+        P1 = projection_matrix(K, eye3, zero3)
+        P2 = projection_matrix(K, res.R, res.t)
+        X = triangulate_points(P1, P2, xy1, xy2)
+        return filter_3d_points(X, res.triangulation_inliers & m.mask, K, eye3, zero3, K, res.R,
+                                res.t, xy1, xy2, cfg.reprojection_threshold,
+                                min_points=cfg.min_num_3d_points)
+
+    tri_ms, _ = _sync_ms(torch, triangulate)
+    return {"detect_ms": detect_ms, "match_ms": match_ms, "relative_pose_ms": pose_ms,
+            "find_essential_ms": essential_ms, "find_homography_ms": homography_ms,
+            "sampson_gauss_newton_6_steps_ms": gn_ms, "jacobi_solves": solve_rows,
+            "triangulate_and_gates_ms": tri_ms,
+            "prefer_essential": bool(select_estimation_method(xy1, xy2, m.mask, cfg.distance)),
+            "used_essential": bool(res.used_essential),
+            "num_matches": int(m.count), "num_inliers": int(res.num_inliers)}
+
+
+def phase_mono_stages(torch, seq):
+    """Frames 12 and 13 of the slice taken apart, each after the frames
+    before it with the slice's generator seed, then both under
+    torch.profiler: device time, launches and the device's idle share.  On
+    the slice's planar scene the frames take turns: one prefers the
+    homography (one Jacobi solve), the next the essential matrix, whose gate
+    fails on the plane, and then the homography too (three solves)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ergo_uvo_tpu_torch.geometry import linalg
+    from ergo_uvo_tpu_torch.pipeline import run_mono_vo
+
+    dev = torch.device("cuda")
+    cfg = _main_path_config()
+    mid = N_FRAMES // 2
+    imgs, ts, rg, K = (torch.as_tensor(x).to(dev) for x in (seq.imgs_left, seq.timestamps,
+                                                            seq.ranges, seq.K))
+    stages = []
+    for f in (mid + 1, mid):  # frame `mid`'s state and generator are kept for the profile
+        gen = torch.Generator(device=dev).manual_seed(0)
+        state, _ = run_mono_vo(imgs[:f], ts[:f], rg[:f], K, cfg, gen)
+        stages.insert(0, {"frame": f, **_mono_stages(torch, state, imgs[f], K, cfg)})
+    torch.cuda.synchronize()
+    before = linalg.LAUNCHES
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_mono_vo(imgs[mid:mid + 2], ts[mid:mid + 2], rg[mid:mid + 2], K, cfg, gen, state=state)
+        torch.cuda.synchronize()
+        profiled_s = time.perf_counter() - t0
+    solves = linalg.LAUNCHES - before
+    events = prof.key_averages()
+    device_us = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    jacobi_us = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA and "jacobi_eigh" in e.key)
+    n_launch = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    check(device_us > 0, "torch.profiler recorded no device time on the mono path")
+    wall_ms = 1e3 * profiled_s / 2
+    emit({"phase": "mono_stages", "height": 480, "width": 640, "stages": stages,
+          "profiled": {"frames": 2, "wall_ms_per_frame": wall_ms,
+                       "device_ms_per_frame": device_us / 2e3,
+                       "jacobi_device_ms_per_frame": jacobi_us / 2e3,
+                       "jacobi_launches_per_frame": solves / 2,
+                       "device_idle_share": 1.0 - device_us / 2e3 / wall_ms,
+                       "cuda_launch_calls_per_frame": n_launch / 2}})
+    for st in stages:
+        solves = len(st["jacobi_solves"])
+        check(solves >= (3 if st["prefer_essential"] and not st["used_essential"] else 1),
+              f"mono_stages: frame {st['frame']}: {solves} Jacobi solves in the relative pose")
+
+
+def phase_plain_jacobi(torch, seq):
+    """The first 12 frames of ``slice`` and of ``slice_stereo`` twice in turn:
+    through the kernel, then with ``jacobi_eigh_reference`` patched in where
+    the estimators look ``jacobi_eigh`` up (``linalg`` for ``smallest_eigvec``,
+    ``p3p``), so that no kernel solves.  Every output field of the two runs
+    must be equal bit for bit; ms per frame of each, same call."""
+    import importlib
+
+    import numpy as np
+
+    from ergo_uvo_tpu_torch.geometry import linalg
+    from ergo_uvo_tpu_torch.io import make_stereo_sequence
+    from ergo_uvo_tpu_torch.pipeline import run_mono_vo, run_stereo_vo
+
+    # The module: the package's name p3p is the function.
+    p3p = importlib.import_module("ergo_uvo_tpu_torch.estimation.p3p")
+
+    dev = torch.device("cuda")
+    n = N_BATCHED
+    sseq = make_stereo_sequence(n_frames=N_FRAMES, height=480, width=640, seed=2)
+    rig = _bench_rig(torch, sseq)
+    runs = {
+        "slice": lambda gen: run_mono_vo(seq.imgs_left[:n], seq.timestamps[:n], seq.ranges[:n],
+                                         seq.K, _main_path_config(), gen),
+        "slice_stereo": lambda gen: run_stereo_vo(sseq.imgs_left[:n], sseq.imgs_right[:n],
+                                                  sseq.timestamps[:n], rig, _stereo_config(), gen),
+    }
+    line = {"phase": "plain_jacobi", "frames": n}
+    for path, run in runs.items():
+        got = {}
+        for route in ("kernel", "plain"):
+            real = linalg.jacobi_eigh, p3p.jacobi_eigh
+            if route == "plain":
+                linalg.jacobi_eigh = p3p.jacobi_eigh = linalg.jacobi_eigh_reference
+            try:
+                before = linalg.LAUNCHES
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, outs = run(torch.Generator(device=dev).manual_seed(0))
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launched = linalg.LAUNCHES - before
+            finally:
+                linalg.jacobi_eigh, p3p.jacobi_eigh = real
+            got[route] = ({f: getattr(outs, f).cpu().numpy() for f in outs._fields}, launched,
+                          1e3 * seconds / n)
+        (k, k_launches, k_ms), (p, p_launches, p_ms) = got["kernel"], got["plain"]
+        line[path] = {"kernel_jacobi_launches": k_launches, "plain_jacobi_launches": p_launches,
+                      "kernel_ms_per_frame": k_ms, "plain_ms_per_frame": p_ms,
+                      "bit_equal": {f: k[f].tobytes() == p[f].tobytes() for f in k},
+                      "max_abs_velocity_diff": float(np.abs(k["velocity"] - p["velocity"]).max())}
+    emit(line)
+    for path in runs:
+        r = line[path]
+        check(r["kernel_jacobi_launches"] > 0 and r["plain_jacobi_launches"] == 0,
+              f"plain_jacobi: {path}: {r['kernel_jacobi_launches']} kernel launches through the "
+              f"kernel, {r['plain_jacobi_launches']} with the plain version patched in")
+        check(all(r["bit_equal"].values()),
+              f"plain_jacobi: {path}: outputs differ with the plain Jacobi: {r['bit_equal']}")
 
 
 def _stereo_config():
@@ -824,7 +1215,6 @@ def _stream_phase(torch, phase, stream, bulk, state_example, out_type, per_frame
     import numpy as np
 
     from ergo_uvo_tpu_torch.cli import _make_stream_ckpt_cb
-    from ergo_uvo_tpu_torch.features import top2_matcher
     from ergo_uvo_tpu_torch.utils.checkpoint import load_stream_run
 
     dev = torch.device("cuda")
@@ -836,11 +1226,11 @@ def _stream_phase(torch, phase, stream, bulk, state_example, out_type, per_frame
     bulk_s = time.perf_counter() - t0
 
     timings = []
-    top2_matcher.LAUNCHES = 0
+    _zero_counts()
     t0 = time.perf_counter()
     state, outs = stream(8, generator=gen(), timings=timings)
     stream_s = time.perf_counter() - t0
-    launches = top2_matcher.LAUNCHES
+    launches = _read_counts(phase)
     check(launches == per_frame * N_FRAMES,
           f"{phase}: kernel launched {launches} times in {N_FRAMES} frames, "
           f"expected {per_frame} a frame")
@@ -1124,14 +1514,12 @@ def phase_accuracy(torch, stereo):
     card, held to the bounds above; one launch a mono frame, two a pair."""
     import numpy as np
 
-    from ergo_uvo_tpu_torch.features import top2_matcher
-
     phase = "accuracy_stereo_sift" if stereo else "accuracy_sift"
-    top2_matcher.LAUNCHES = 0
+    _zero_counts()
     t0 = time.perf_counter()
     rows = accuracy_runs(torch, torch.device("cuda"), stereo)
     seconds = time.perf_counter() - t0
-    launches = top2_matcher.LAUNCHES
+    launches = _read_counts(phase)
     frames = sum(r["frames"] for r in rows)
     check(launches == (2 if stereo else 1) * frames,
           f"{phase}: {launches} kernel launches in {frames} frames")
@@ -1175,7 +1563,6 @@ def phase_cli(torch, run, opt=False):
 
     from ergo_uvo_tpu_torch import cli
     from ergo_uvo_tpu_torch.config import load_vo_params
-    from ergo_uvo_tpu_torch.features import top2_matcher
     from ergo_uvo_tpu_torch.pipeline import mono as mono_mod
     from ergo_uvo_tpu_torch.pipeline import stereo as stereo_mod
 
@@ -1205,7 +1592,7 @@ def phase_cli(torch, run, opt=False):
 
     module.read_back = watched_read_back
     stdout = io.StringIO()
-    top2_matcher.LAUNCHES = 0
+    _zero_counts()
     try:
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(stdout):
@@ -1213,7 +1600,7 @@ def phase_cli(torch, run, opt=False):
         seconds = time.perf_counter() - t0
     finally:
         module.read_back = real_read_back
-    launches = top2_matcher.LAUNCHES
+    launches = _read_counts(phase)
     summary = json.loads(stdout.getvalue().strip().splitlines()[-1])
     with open(out) as f:
         records = [json.loads(line) for line in f]
@@ -1311,7 +1698,6 @@ def phase_ba(torch):
     ``WindowedBA.refine`` (association by the top-2 kernel, then the solve)."""
     import numpy as np
 
-    from ergo_uvo_tpu_torch.features import top2_matcher
     from ergo_uvo_tpu_torch.optim.ba import BAProblem, ba_solve, reprojection_residuals
     from ergo_uvo_tpu_torch.optim.keyframes import WindowedBA
 
@@ -1365,10 +1751,10 @@ def phase_ba(torch):
         d = desc + 0.01 * rng.standard_normal(desc.shape).astype(np.float32)
         wba.push_keyframe(*(torch.as_tensor(a).cuda() for a in (
             obs[p], d, np.ones(BA_LANDMARKS, bool), Rs[p], ts[p])))
-    top2_matcher.LAUNCHES = 0
+    _zero_counts()
     w_state, w_costs, lm_mask = wba.refine(torch.as_tensor(K).cuda())
     torch.cuda.synchronize()
-    window_launches = top2_matcher.LAUNCHES
+    window_launches = _read_counts("ba")
     w_costs = w_costs.cpu().numpy()
     n_landmarks = int(lm_mask.sum())
 
@@ -1404,7 +1790,6 @@ def phase_trajectory_ba(torch):
 
     from ergo_uvo_tpu_torch.config import MonoVOConfig, SurfConfig
     from ergo_uvo_tpu_torch.eval import ate_rmse
-    from ergo_uvo_tpu_torch.features import top2_matcher
     from ergo_uvo_tpu_torch.io import make_mono_sequence
     from ergo_uvo_tpu_torch.optim import integrate_mono_poses, refine_mono_trajectory
     from ergo_uvo_tpu_torch.pipeline import run_mono_vo
@@ -1413,19 +1798,19 @@ def phase_trajectory_ba(torch):
     cfg_ba = MonoVOConfig(surf=SurfConfig(min_hessian=60.0), max_keypoints=256, num_hypotheses=16)
     seq = make_mono_sequence(n_frames=36, height=240, width=320, dt=0.25, seed=5, speed=0.5)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    top2_matcher.LAUNCHES = 0
+    _zero_counts()
     _, outs = run_mono_vo(seq.imgs_left, seq.timestamps, seq.ranges, seq.K, cfg_vo, gen)
-    vo_launches = top2_matcher.LAUNCHES
+    vo_launches = _read_counts("trajectory_ba_vo")
     outs = type(outs)(*(x.cpu().numpy() for x in outs))
     _, _, raw = integrate_mono_poses(outs.velocity, outs.R, seq.timestamps, outs.published)
     gt = seq.positions - seq.positions[0]
 
-    top2_matcher.LAUNCHES = 0
+    _zero_counts()
     t0 = time.perf_counter()
     res = refine_mono_trajectory(seq.imgs_left, seq.timestamps, outs, seq.K, cfg_ba,
                                  window_size=6, keyframe_stride=2, ba_iters=12)
     seconds = time.perf_counter() - t0
-    launches = top2_matcher.LAUNCHES
+    launches = _read_counts("trajectory_ba")
     ate_raw, ate_ba = ate_rmse(raw, gt), ate_rmse(res.positions, gt)
     diffs = np.diff(res.costs, axis=1)
     monotone = bool((diffs <= 1e-3 * np.abs(res.costs[:, :-1]) + 1e-5).all())
@@ -1450,7 +1835,6 @@ def phase_loop_closure(torch):
     import numpy as np
 
     from ergo_uvo_tpu_torch.config import MonoVOConfig, SurfConfig
-    from ergo_uvo_tpu_torch.features import top2_matcher
     from ergo_uvo_tpu_torch.io import make_loop_sequence
     from ergo_uvo_tpu_torch.optim import trajectory
 
@@ -1473,7 +1857,7 @@ def phase_loop_closure(torch):
         return real_verify(*args, **kwargs)
 
     trajectory.verify_loop_candidate = watched_verify
-    top2_matcher.LAUNCHES = 0
+    _zero_counts()
     try:
         t0 = time.perf_counter()
         res = trajectory.close_loops_and_optimize(
@@ -1482,7 +1866,7 @@ def phase_loop_closure(torch):
         seconds = time.perf_counter() - t0
     finally:
         trajectory.verify_loop_candidate = real_verify
-    launches = top2_matcher.LAUNCHES
+    launches = _read_counts("loop_closure")
     after = float(np.linalg.norm((res.positions[-1] - res.positions[0])
                                  - (seq.positions[-1] - seq.positions[0])))
     # The pose graph's scatter-adds are atomic adds in no fixed order on the
@@ -1539,7 +1923,6 @@ def phase_dist_ba(torch):
         sharded_ba_solve,
         window_sharded_ba_solve,
     )
-    from ergo_uvo_tpu_torch.features import top2_matcher
     from ergo_uvo_tpu_torch.optim.ba import BAProblem, ba_solve, reprojection_residuals
 
     dev = _nccl_world_of_one(torch)
@@ -1567,7 +1950,7 @@ def phase_dist_ba(torch):
         reduces.append(1)
         return real_all_reduce(*args, **kwargs)
 
-    top2_matcher.LAUNCHES = 0
+    _zero_counts()
     dist.all_reduce = counted_all_reduce
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1579,7 +1962,7 @@ def phase_dist_ba(torch):
         torch.cuda.set_sync_debug_mode(0)
         dist.all_reduce = real_all_reduce
     torch.cuda.synchronize()
-    launches = top2_matcher.LAUNCHES
+    launches = _read_counts("dist_ba")
 
     r, _, _ = reprojection_residuals(Kd, R0, t0, Xd, obs_d, mask)
     start_cost = float((r * r).sum())
@@ -1642,7 +2025,6 @@ def phase_dist_vo(torch):
     import torch.distributed as dist
 
     from ergo_uvo_tpu_torch.dist import make_mesh, run_mono_vo_batch, shard_frame_batches
-    from ergo_uvo_tpu_torch.features import top2_matcher
     from ergo_uvo_tpu_torch.io import make_mono_sequence
     from ergo_uvo_tpu_torch.io.sequence import ArraySource
     from ergo_uvo_tpu_torch.pipeline.mono import run_mono_vo
@@ -1661,13 +2043,13 @@ def phase_dist_vo(torch):
     check(imgs.is_cuda and imgs.shape == (B, T, 480, 640), f"dist_vo: ingested {tuple(imgs.shape)}")
 
     torch.cuda.synchronize()
-    top2_matcher.LAUNCHES = 0
+    _zero_counts()
     t0 = time.perf_counter()
     state, outs = run_mono_vo_batch(mesh, imgs, tss, rgs, seqs[0].K, cfg, seed=DIST_VO_SEED,
                                     local=True)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = top2_matcher.LAUNCHES
+    launches = _read_counts("dist_vo")
 
     equal, streams, sq_errs = [], [], []
     for b, seq in enumerate(seqs):
@@ -1721,8 +2103,10 @@ def main() -> int:
     phase_build()
     max_err, timings = phase_kernel(torch)
     main_shape = timings[MAIN_SHAPE]
+    jacobi_err, jacobi_timings = phase_jacobi(torch)
     seq = _mono_sequence()
     launches, slice_outs = phase_slice(torch, seq)
+    phase_mono_stages(torch, seq)
     plan, frames = phase_preprocess(torch, seq)
     preprocessed_launches, lens = phase_slice_preprocessed(torch, seq, plan, frames)
     paths = {"slice": launches,
@@ -1733,6 +2117,7 @@ def main() -> int:
              "stream_stereo": phase_stream_stereo(torch),
              "cli_mono": phase_cli(torch, "mono"),
              "cli_stereo": phase_cli(torch, "stereo")}
+    phase_plain_jacobi(torch, seq)
     frames_by_path = {"slice": N_FRAMES, "slice_preprocessed": N_FRAMES, "slice_batched": N_BATCHED,
                       "slice_stereo": N_FRAMES, "stream_mono": N_FRAMES,
                       "stream_stereo": N_FRAMES, "cli_mono": N_FRAMES, "cli_stereo": N_FRAMES}
@@ -1759,6 +2144,11 @@ def main() -> int:
     frames_by_path["dist_vo"] = DIST_VO_STREAMS * DIST_VO_FRAMES
     check(all(n > 0 for k, n in paths.items() if k != "dist_ba"),
           f"a path launched the kernel no time: {paths}")
+    # Window BA and the BA of the trajectory run no pose solver.
+    jacobi_paths = {k: JACOBI_BY_PATH[k] for k in paths}
+    check(all(n > 0 for k, n in jacobi_paths.items() if k not in ("ba", "trajectory_ba", "dist_ba")),
+          f"a path launched the Jacobi kernel no time: {jacobi_paths}")
+    jacobi_main = jacobi_timings[JACOBI_MAIN]
     print(smi, flush=True)  # the card again, beside the summary at the end of the output
     emit({"kernels": [{"name": "top2_distances", "route": "cuda", "source": KERNEL_SOURCE,
                        "replaces": KERNEL_REPLACES, "launches": launches,
@@ -1773,7 +2163,21 @@ def main() -> int:
                        "by_shape": {name: {k: row[k] for k in (
                            "ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
                            "library_device_ms", "bound_ms", "bound_by")}
-                           for name, row in timings.items()}}]})
+                           for name, row in timings.items()}},
+                      {"name": "jacobi_eigh", "route": "cuda", "source": JACOBI_SOURCE,
+                       "replaces": JACOBI_REPLACES, "launches": JACOBI_BY_PATH["slice"],
+                       "launches_per_frame": JACOBI_BY_PATH["slice"] / N_FRAMES,
+                       "launches_by_path": jacobi_paths,
+                       "launches_per_frame_by_path": {k: n / frames_by_path[k]
+                                                      for k, n in jacobi_paths.items()},
+                       "max_abs_err": jacobi_err,
+                       **{k: jacobi_main[k] for k in (
+                           "shape", "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
+                           "bound_by", "library", "library_ms", "library_device_ms")},
+                       "by_shape": {name: {k: row[k] for k in (
+                           "ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
+                           "library_device_ms", "bound_ms", "bound_by")}
+                           for name, row in jacobi_timings.items()}}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

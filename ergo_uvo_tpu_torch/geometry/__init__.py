@@ -14,6 +14,7 @@ from ergo_uvo_tpu_torch.geometry.camera import (  # noqa: F401
 from ergo_uvo_tpu_torch.geometry.linalg import (  # noqa: F401
     inv33,
     jacobi_eigh,
+    jacobi_eigh_reference,
     polar_so3,
     smallest_eigvec,
 )

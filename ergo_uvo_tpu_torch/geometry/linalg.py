@@ -1,11 +1,21 @@
 """Batched small-matrix linear algebra — counterpart of ``ergo_uvo_tpu/geometry/linalg.py``.
 
-:func:`jacobi_eigh` is the JAX package's cyclic Jacobi carried over literally
-(7 sweeps, the same (p, q) order, the same rotation formula, a stable
-ascending sort): its eigenvector sign feeds the essential matrix and the
-homography refit, so ``torch.linalg.eigh`` (whose signs differ) is not a
-substitute.  In eager mode each of the 252 rotations of a 9x9 solve is a few
-dozen small elementwise launches, whatever the batch size.
+:func:`jacobi_eigh` is the JAX package's cyclic Jacobi (7 sweeps, the same
+(p, q) order, the same rotation formula, a stable ascending sort): its
+eigenvector sign feeds the essential matrix and the homography refit, so
+``torch.linalg.eigh`` (whose signs differ) is not a substitute.  It dispatches
+on the tensor's device:
+
+* a CUDA tensor launches ``csrc/jacobi_eigh.cu``, one thread a matrix and one
+  launch a solve, at n = 3, 9 and 12 in float32; any other CUDA input raises,
+  and nothing falls back;
+* a CPU tensor takes :func:`jacobi_eigh_reference`, the plain PyTorch version,
+  which the CPU tests hold to JAX and ``chip_smoke.py`` holds the kernel to,
+  bit for bit, on the card.  Eager, each of a 9x9 solve's 252 rotations is
+  about 50 elementwise launches, whatever the batch size.
+
+``LAUNCHES`` counts kernel launches, so a run can show that its solves went
+through the kernel.
 
 :func:`inv33` and :func:`polar_so3` are the closed-form 3x3 inverse and the
 Newton polar projection onto SO(3) that the PnP solver's DLT uses.
@@ -13,11 +23,18 @@ Newton polar projection onto SO(3) that the PnP solver's DLT uses.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from ergo_uvo_tpu_torch.cuda_build import load_library
 
-def jacobi_eigh(A: torch.Tensor, sweeps: int = 7):
-    """Eigendecomposition of batched symmetric (..., n, n) matrices.
+LAUNCHES = 0
+KERNEL_SIZES = (3, 9, 12)  # the n the kernel is built for
+
+
+def jacobi_eigh_reference(A: torch.Tensor, sweeps: int = 7):
+    """Eigendecomposition of batched symmetric (..., n, n) matrices, plain PyTorch.
 
     Returns (eigvals (..., n) ascending, eigvecs (..., n, n) as columns).
     Works on copies: the input is not modified.
@@ -61,6 +78,61 @@ def jacobi_eigh(A: torch.Tensor, sweeps: int = 7):
     eigvals = torch.gather(eigvals, -1, order)
     V = torch.gather(V, -1, order[..., None, :].expand(V.shape))
     return eigvals, V
+
+
+_C_INT = ctypes.c_int
+_C_PTR = ctypes.c_void_p
+
+
+def _library() -> ctypes.CDLL:
+    """The built kernel library; the argument types are set when it is loaded."""
+    lib = load_library("jacobi_eigh")
+    if lib.jacobi_eigh_launch.argtypes is None:
+        lib.jacobi_eigh_launch.argtypes = [_C_PTR] * 3 + [_C_INT] * 3 + [_C_PTR]
+        lib.jacobi_eigh_launch.restype = _C_INT
+    return lib
+
+
+def _launch(A: torch.Tensor, sweeps: int):
+    """One launch for the whole batch; leading dimensions are flattened."""
+    global LAUNCHES
+    if A.dtype != torch.float32:
+        raise TypeError(f"jacobi_eigh: the kernel takes float32, got {A.dtype}")
+    if A.ndim < 2 or A.shape[-1] != A.shape[-2]:
+        raise ValueError(f"jacobi_eigh: expected (..., n, n), got {tuple(A.shape)}")
+    n = A.shape[-1]
+    if n not in KERNEL_SIZES:
+        raise ValueError(f"jacobi_eigh: the kernel is built for n in {KERNEL_SIZES}, got {n}")
+    if sweeps < 0:
+        raise ValueError(f"jacobi_eigh: sweeps must be >= 0, got {sweeps}")
+    a = A.reshape(-1, n, n).contiguous()
+    batch = a.shape[0]
+    evals = torch.empty(*A.shape[:-1], dtype=A.dtype, device=A.device)
+    evecs = torch.empty(A.shape, dtype=A.dtype, device=A.device)
+    if batch == 0:
+        return evals, evecs
+    lib = _library()
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = lib.jacobi_eigh_launch(a.data_ptr(), evals.data_ptr(), evecs.data_ptr(),
+                                     batch, n, sweeps, stream)
+    if err != 0:
+        raise RuntimeError(f"jacobi_eigh kernel launch failed: cudaError {err}")
+    LAUNCHES += 1
+    return evals, evecs
+
+
+def jacobi_eigh(A: torch.Tensor, sweeps: int = 7):
+    """Eigendecomposition of batched symmetric (..., n, n) matrices.
+
+    Returns (eigvals (..., n) ascending, eigvecs (..., n, n) as columns); the
+    input is not modified.  See the module doc for the dispatch.
+    """
+    if A.is_cuda:
+        return _launch(A, sweeps)
+    if A.device.type == "cpu":
+        return jacobi_eigh_reference(A, sweeps)
+    raise ValueError(f"jacobi_eigh: no implementation for device {A.device}")
 
 
 def smallest_eigvec(A: torch.Tensor, sweeps: int = 7) -> torch.Tensor:
