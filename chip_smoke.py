@@ -13,7 +13,8 @@ preprocessed slice print side lines):
 2. build: nvcc builds ``ergo_uvo_tpu_torch/csrc/top2_distances.cu`` and
    ``ergo_uvo_tpu_torch/csrc/jacobi_eigh.cu`` from the checkout's sources
    into ``build/``, one nvcc a source, both started together (seconds,
-   ptxas register and spill report of each);
+   ptxas register and spill report of each, and each kernel's SASS
+   instruction count where the toolkit has ``cuobjdump``);
 3. kernel: the top-2 kernel against its plain PyTorch version on the card at
    the main path's shape, the contract shapes and the edge cases (empty and
    masked slices, duplicates across cluster ranks, a depth that is no
@@ -28,14 +29,19 @@ preprocessed slice print side lines):
    10 warm-ups) and as device time of the call's kernels under
    torch.profiler (mean of 20 calls), beside the card's bound for the shape;
 4. jacobi: the Jacobi kernel against its plain PyTorch version on the card,
-   bit for bit (NaN where NaN), at (1, 9, 9), (512, 9, 9), P3P's (512, 3,
-   3, 3), (512, 12, 12), a batch of 0 and the edge cases (random SPD, a
+   bit for bit (0 ulps, NaN where NaN), at (1, 9, 9), (512, 9, 9), P3P's
+   (512, 3, 3, 3), (512, 12, 12), a batch of 0, the edge cases (random SPD, a
    diagonal matrix, signed zeros, a repeated eigenvalue, zero matrices, a
-   rank-deficient 12x12, NaN and inf in 9x9 and in P3P's pencils), the input
-   left as it was; CUDA inputs it cannot take raise; then at the four shapes
-   the time of the kernel, of the plain version and of
-   ``torch.linalg.eigh``, per call between CUDA events and as device time
-   under torch.profiler, beside the card's bound;
+   rank-deficient 12x12, NaN and inf in 9x9 and in P3P's pencils) and batches
+   that cut the kernel's lane groups, warps and blocks (1, 2, 31, 33, 257,
+   513 at n = 9, 1537 at n = 3, 511 at n = 12), at 7 sweeps, and the four
+   main shapes again at 0 and 1 sweeps, one launch a call, the input left as
+   it was; CUDA inputs it cannot take raise; then at the four shapes the time
+   of the kernel, of the plain version and of ``torch.linalg.eigh``, per call
+   between CUDA events and as device time under torch.profiler, beside the
+   card's bound, and the kernel's cycles a rotation at the SM clock that
+   ``nvidia-smi`` reads, polled from a thread, while the kernel keeps the card
+   busy (the 512x12x12 batch 64 times over);
 5. slice: ``run_mono_vo`` on 24 synthetic 640x480 frames under the main
    path's config (SURF, 512 keypoints, 512 hypotheses, LMEDS), counting both
    kernels' launches (the Jacobi kernel at least once a frame and twice an
@@ -223,8 +229,30 @@ def phase_build():
         nvcc_seconds, log = BUILD_INFO[stem]
         kernels[stem] = {"nvcc_seconds": nvcc_seconds, "ptxas": [
             line.strip() for line in log.splitlines()
-            if "registers" in line or "spill" in line or "Compiling entry" in line]}
+            if "registers" in line or "spill" in line or "Compiling entry" in line],
+            "sass_instructions": _sass_counts(load_library(stem)._name)}
     emit({"phase": "build", "seconds": seconds, "kernels": kernels})
+
+
+def _sass_counts(library):
+    """{kernel: SASS instructions} in a built library, from ``cuobjdump
+    -sass``; None where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        return None
+    sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if m := re.match(r"\s*Function : (\S+)", line):
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[name] += 1
+    return counts
 
 
 def _unit(torch, n, d, seed, dev):
@@ -459,6 +487,40 @@ JACOBI_SWEEPS = 7
 # hypotheses, P3P's (512, 3, 3, 3) pencils, 512 DLT normal matrices.
 JACOBI_TIMED = [("1x9x9", 9), ("512x9x9", 9), ("1536x3x3", 3), ("512x12x12", 12)]
 JACOBI_MAIN = "512x9x9"
+JACOBI_EDGE_BATCHES = {9: (1, 2, 31, 33, 257, 513), 3: (1537,), 12: (511,)}
+JACOBI_FEW_SWEEPS = (0, 1)  # the timed shapes again, where order errors cannot hide in convergence
+JACOBI_LOAD = 64  # the clock's load: the 512x12x12 DLT batch 64 times over, ~1 ms a call
+
+
+def _sm_clock_under_load(torch, load):
+    """(SM clock MHz, utilization %): the medians of what ``nvidia-smi``
+    reads, polled from a thread, for 2 s of ``load()``'s calls, 20 of them
+    queued between syncs so that the card stays busy."""
+    import threading
+
+    readings, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,utilization.gpu", "--format=csv,noheader,nounits"],
+                capture_output=True, text=True, check=True, timeout=60).stdout
+            if not stop.is_set():
+                readings.append([float(x) for x in out.splitlines()[0].split(",")])
+
+    load()
+    torch.cuda.synchronize()
+    poller = threading.Thread(target=poll)
+    t0 = time.perf_counter()
+    poller.start()
+    while time.perf_counter() - t0 < 2.0 or (len(readings) < 3 and poller.is_alive()):
+        for _ in range(20):
+            load()
+        torch.cuda.synchronize()
+    stop.set()
+    poller.join()
+    check(len(readings) >= 3, f"jacobi: nvidia-smi gave {len(readings)} clock readings under load")
+    return (statistics.median(r[0] for r in readings), statistics.median(r[1] for r in readings))
 
 
 def _jacobi_bound(batch, n, sweeps=JACOBI_SWEEPS):
@@ -512,6 +574,12 @@ def _jacobi_inputs(torch, dev):
     p3p[3, 0, 1, 2] = p3p[3, 0, 2, 1] = float("inf")
     p3p[4, 1, 1, 1] = -float("inf")
     cases["nan_inf_6x3x3x3"] = p3p
+    # Batches that cut a group of lanes, a warp and a block of the kernel.
+    for batch in JACOBI_EDGE_BATCHES[9]:
+        cases[f"batch_{batch}x9x9"] = gram(batch, 8, 9)
+    for n in (3, 12):
+        for batch in JACOBI_EDGE_BATCHES[n]:
+            cases[f"batch_{batch}x{n}x{n}"] = pencil(batch) if n == 3 else gram(batch, n, n)
     return {k: v.contiguous().to(dev) for k, v in cases.items()}
 
 
@@ -539,24 +607,27 @@ def phase_jacobi(torch):
 
     dev = torch.device("cuda")
     cases = _jacobi_inputs(torch, dev)
+    runs = [(name, A, JACOBI_SWEEPS) for name, A in cases.items()]
+    runs += [(name, cases[name], sweeps) for sweeps in JACOBI_FEW_SWEEPS for name, _ in JACOBI_TIMED]
     results, max_err, max_ulps = [], 0.0, 0
-    for name, A in cases.items():
+    for name, A, sweeps in runs:
         keep = A.clone()
         before = linalg.LAUNCHES
-        w, v = linalg.jacobi_eigh(A)
+        w, v = linalg.jacobi_eigh(A, sweeps)
         launched = linalg.LAUNCHES - before
-        rw, rv = linalg.jacobi_eigh_reference(A)
+        rw, rv = linalg.jacobi_eigh_reference(A, sweeps)
         torch.cuda.synchronize()
         (wb, wu, we), (vb, vu, ve) = _bit_compare(torch, w, rw), _bit_compare(torch, v, rv)
         max_err, max_ulps = max(max_err, we, ve), max(max_ulps, wu, vu)
-        results.append({"case": name, "shape": list(A.shape), "launches": launched,
+        results.append({"case": name, "sweeps": sweeps, "shape": list(A.shape), "launches": launched,
                         "bit_equal": wb and vb, "max_ulps": max(wu, vu), "max_abs_err": max(we, ve),
                         "input_kept": _bit_compare(torch, A, keep)[0]})
     line = {"phase": "jacobi", "sweeps": JACOBI_SWEEPS, "cases": results,
             "max_abs_err": max_err, "max_ulps": max_ulps}
     for r in results:
-        check(r["bit_equal"], f"jacobi: {r['case']}: the kernel differs from the plain version "
-                              f"by {r['max_ulps']} ulps ({r['max_abs_err']})")
+        check(r["bit_equal"] and r["max_ulps"] == 0,
+              f"jacobi: {r['case']} at {r['sweeps']} sweeps: the kernel differs from the plain "
+              f"version by {r['max_ulps']} ulps ({r['max_abs_err']})")
         check(r["input_kept"], f"jacobi: {r['case']}: the input was written")
         check(r["launches"] == (0 if r["shape"][0] == 0 else 1),
               f"jacobi: {r['case']}: {r['launches']} launches")
@@ -567,6 +638,9 @@ def phase_jacobi(torch):
             continue
         check(False, f"jacobi: a CUDA input of shape {tuple(bad.shape)}, {bad.dtype} did not raise")
 
+    load = cases["512x12x12"].repeat(JACOBI_LOAD, 1, 1)
+    mhz, util = _sm_clock_under_load(torch, lambda: linalg.jacobi_eigh(load))
+    line.update(sm_mhz_under_load=mhz, utilization_under_load=util, load_shape=list(load.shape))
     timings = {}
     for name, n in JACOBI_TIMED:
         A = cases[name]
@@ -583,6 +657,7 @@ def phase_jacobi(torch):
                "library_ms": _time_ms(torch, lib), "library_device_ms": _device_ms(torch, lib)}
         row.update(_jacobi_bound(batch, n))
         row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        row["cycles_per_rotation"] = row["device_ms"] * 1e3 * mhz / (JACOBI_SWEEPS * n * (n - 1) // 2)
         timings[name] = row
     line["timings"] = list(timings.values())
     emit(line)
@@ -2173,10 +2248,11 @@ def main() -> int:
                        "max_abs_err": jacobi_err,
                        **{k: jacobi_main[k] for k in (
                            "shape", "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
-                           "bound_by", "library", "library_ms", "library_device_ms")},
+                           "bound_by", "library", "library_ms", "library_device_ms",
+                           "cycles_per_rotation")},
                        "by_shape": {name: {k: row[k] for k in (
                            "ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
-                           "library_device_ms", "bound_ms", "bound_by")}
+                           "library_device_ms", "bound_ms", "bound_by", "cycles_per_rotation")}
                            for name, row in jacobi_timings.items()}}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

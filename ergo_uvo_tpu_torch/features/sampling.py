@@ -4,6 +4,9 @@ Counterpart of ``ergo_uvo_tpu/features/sampling.py``.
 
 * :func:`resize_bilinear`: two triangle-weight products, as in the JAX
   package, in true float32.
+* :func:`hat_matrix`: the JAX package's dense hat weights, the same bits.
+  Nothing in the port calls it: the samplers below take the two taps that
+  carry weight.
 * :func:`extract_patches` and :func:`sample_patch`: the JAX package samples
   with hat-weight matmuls, ``relu(1 - |pos - i|)`` over the whole grid,
   because gathers are slow on the TPU.  Only the two grid points either side
@@ -56,6 +59,16 @@ def resize_bilinear(
     R = _resize_weights(out_h, h, antialias, img.dtype, img.device)  # (out_h, h)
     C = _resize_weights(out_w, w, antialias, img.dtype, img.device)  # (out_w, w)
     return R @ img @ C.T
+
+
+def hat_matrix(pos: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., S) float positions -> (..., S, n) bilinear hat weights.
+
+    Row s holds relu(1 - |pos_s - i|) over grid i = 0..n-1: exactly the
+    two nonzero bilinear interpolation weights (or all-zero out of range).
+    """
+    grid = torch.arange(n, dtype=pos.dtype, device=pos.device)
+    return torch.clamp(1.0 - (pos[..., None] - grid).abs(), min=0.0)
 
 
 def _hat_taps(pos: torch.Tensor, n: int):

@@ -6,9 +6,9 @@ eigenvector sign feeds the essential matrix and the homography refit, so
 ``torch.linalg.eigh`` (whose signs differ) is not a substitute.  It dispatches
 on the tensor's device:
 
-* a CUDA tensor launches ``csrc/jacobi_eigh.cu``, one thread a matrix and one
-  launch a solve, at n = 3, 9 and 12 in float32; any other CUDA input raises,
-  and nothing falls back;
+* a CUDA tensor launches ``csrc/jacobi_eigh.cu``, one launch a solve, at
+  n = 3, 9 and 12 in float32 (a group of 16 lanes a 9x9 or 12x12 matrix, a
+  thread a 3x3 one); any other CUDA input raises, and nothing falls back;
 * a CPU tensor takes :func:`jacobi_eigh_reference`, the plain PyTorch version,
   which the CPU tests hold to JAX and ``chip_smoke.py`` holds the kernel to,
   bit for bit, on the card.  Eager, each of a 9x9 solve's 252 rotations is

@@ -118,6 +118,33 @@ def test_jacobi_eigh_matches_jax(name):
     np.testing.assert_allclose(np.einsum("...ji,...jk->...ik", tv, tv), eye, atol=1e-5)
 
 
+@pytest.mark.parametrize("n", [3, 9])
+@pytest.mark.parametrize("sweeps", [0, 1])
+def test_jacobi_eigh_matches_jax_at_few_sweeps(sweeps, n):
+    """Before convergence the outputs depend on every rotation's order,
+    which the kernel keeps: the plain version against JAX's eager solve at 0
+    and 1 sweeps on a small seeded batch, eigenvalues to 1e-5 of the largest
+    magnitude and eigenvectors to 1e-5, column for column."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+
+    from ergo_uvo_tpu.geometry import linalg as jlinalg
+
+    A = random_spd(np.random.default_rng(30 + n + sweeps), (3,), n)
+    with jax.disable_jit():
+        jw, jv = jlinalg.jacobi_eigh(jnp.asarray(A), sweeps)
+    tw, tv = linalg.jacobi_eigh_reference(torch.from_numpy(A.copy()), sweeps)
+    jw, jv, tw, tv = np.asarray(jw), np.asarray(jv), tw.numpy(), tv.numpy()
+    assert tw.shape == jw.shape == A.shape[:-1] and tv.shape == jv.shape == A.shape
+    scale = np.abs(jw).max(-1, keepdims=True)
+    np.testing.assert_allclose(tw / scale, jw / scale, atol=1e-5)
+    np.testing.assert_allclose(tv, jv, atol=1e-5)
+    if sweeps == 0:  # the diagonal, sorted, and the identity's columns in that order
+        np.testing.assert_array_equal(tw, np.sort(np.diagonal(A, axis1=-2, axis2=-1), -1))
+        np.testing.assert_array_equal(np.abs(tv).sum(-2), 1.0)
+
+
 @pytest.mark.parametrize("name", CASES)
 def test_cpu_route_is_the_plain_version_bit_for_bit(name):
     """A CPU tensor takes the plain version: the same bits, no launch
@@ -186,27 +213,43 @@ def same_bits(a, b):
     return torch.equal(a.view(torch.int32)[~nan], b.view(torch.int32)[~nan])
 
 
+def batch_edges_for_the_card():
+    """(name, float32 array) batches that cut the kernel's lane groups, warps
+    and blocks: 1, 2, 31, 33, 257 and 513 at n = 9, 1537 at n = 3, 511 at
+    n = 12."""
+    rng = np.random.default_rng(12)
+    cases = [(f"batch_{b}x9x9", random_spd(rng, (b,), 9)) for b in (1, 2, 31, 33, 257, 513)]
+    cases.append(("batch_1537x3x3", pencils(rng, (1537,))))
+    cases.append(("batch_511x12x12", random_spd(rng, (511,), 12)))
+    return cases
+
+
 @pytest.mark.cuda
 def test_jacobi_kernel_matches_plain_version_on_cuda():
     """On the card: the kernel gives the plain version's bits at n = 3, 9 and
     12, on the edge cases (the guard, repeated and zero eigenvalues, NaN and
-    inf, signed zeros), on a non-contiguous view and a 2-D input, with one
-    launch a call and the input left as it was."""
+    inf, signed zeros), on batches that cut its lane groups, warps and
+    blocks, on the main shapes at 0 and 1 sweeps too (where an order error
+    cannot hide in convergence), on a non-contiguous view and a 2-D input,
+    with one launch a call and the input left as it was."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernel has no CPU mode")
     dev = torch.device("cuda")
     cases = [(name, case(name)[0]) for name in CASES] + edge_cases_for_the_card()
-    cases.append(("main_512x9x9", random_spd(np.random.default_rng(5), (512,), 9)))
-    cases.append(("p3p_512x3x3x3", pencils(np.random.default_rng(6), (512, 3))))
-    for name, A in cases:
+    main = [("main_512x9x9", random_spd(np.random.default_rng(5), (512,), 9)),
+            ("p3p_512x3x3x3", pencils(np.random.default_rng(6), (512, 3))),
+            ("dlt_512x12x12", random_spd(np.random.default_rng(8), (512,), 12))]
+    runs = [(name, A, 7) for name, A in cases + main + batch_edges_for_the_card()]
+    runs += [(name, A, sweeps) for sweeps in (0, 1) for name, A in main]
+    for name, A, sweeps in runs:
         x = torch.from_numpy(A).to(dev)
         keep = x.clone()
         before = linalg.LAUNCHES
-        w, v = linalg.jacobi_eigh(x)
+        w, v = linalg.jacobi_eigh(x, sweeps)
         assert linalg.LAUNCHES == before + 1, name
-        rw, rv = linalg.jacobi_eigh_reference(x)
+        rw, rv = linalg.jacobi_eigh_reference(x, sweeps)
         torch.cuda.synchronize()
-        assert same_bits(w, rw) and same_bits(v, rv), name
+        assert same_bits(w, rw) and same_bits(v, rv), (name, sweeps)
         assert same_bits(x, keep), name
     x = torch.from_numpy(random_spd(np.random.default_rng(7), (8,), 9)).to(dev)
     for view in (x.transpose(-1, -2), x[3]):

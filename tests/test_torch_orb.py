@@ -92,6 +92,22 @@ def test_fixed_tables_equal_jax():
 
 
 @pytest.mark.fast
+@pytest.mark.parametrize("case", ["test_sampling_positions", "seeded_batch"])
+def test_hat_matrix_matches_jax(case):
+    """``hat_matrix`` gives the JAX package's weights bit for bit: on the
+    positions of tests/test_sampling.py (a tap on the grid, one off each
+    end, 4.2 whose partner 5 is off the grid) and on a seeded (3, 17) batch
+    of positions around a grid of 11, some off it."""
+    if case == "test_sampling_positions":
+        pos, n = np.float32([1.25, 0.0, -0.5, 4.2]), 5
+    else:
+        pos, n = np.random.default_rng(10).uniform(-2.0, 12.0, (3, 17)).astype(np.float32), 11
+    want = np.asarray(jsamp.hat_matrix(jnp.asarray(pos), n))
+    got = tsamp.hat_matrix(t(pos), n).numpy()
+    assert got.shape == want.shape == (*pos.shape, n) and got.dtype == want.dtype
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 def test_extract_patches_and_sample_patch_match_jax():
     """Random centers and spacings, some patches reaching off the image and
     one wholly outside it (all zero in both: a tap off the grid adds zero),
