@@ -6,7 +6,7 @@
 Run from the root of a checkout.  It imports nothing of JAX or of
 ``ergo_uvo_tpu``; every check that fails raises, so any failure exits
 non-zero.  It writes only under ``build/chip_smoke/`` in the checkout.
-Twenty-eight phases, one JSON line each (two detector phases and the
+Thirty phases, one JSON line each (two detector phases and the
 preprocessed slice print side lines):
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA;
@@ -67,7 +67,22 @@ preprocessed slice print side lines):
    frame and one Jacobi launch (P3P), the outputs against ground truth,
    frames 2..23 timed, then the stages of one frame timed apart and two
    frames under torch.profiler;
-11. stream_mono: ``run_mono_vo_streaming`` over the 24 frames of
+11. parity_mono and 12. parity_stereo: the main paths held to the JAX
+   package's own outputs (``tests/fixtures/torch_parity_main.npz``, written
+   on the CPU by ``tests/test_torch_parity_main.py --write``): 12 frames
+   (pairs) of 640x480 regenerated and checked against the fixture's SHA-256,
+   ``run_mono_vo`` / ``run_stereo_vo`` with no device argument and JAX's
+   minimal sets from the fixture, each match mask the card presents equal to
+   the stored one, and every frame under the repo's contract against JAX's
+   eager run (published, validity, the method and the feature counts exact,
+   the match, inlier and point counts within 2, velocity to 5e-3 m/s, the
+   scale factor to 1e-2 relative, stereo t to 2e-3 and R to 1e-3); the line
+   holds both sides' discrete fields, each float field's max |difference|,
+   the frames whose counts are all exact, the frames where JAX's jitted and
+   eager runs differ, and the launches (the top-2 kernel once a mono frame
+   and twice a stereo frame, the Jacobi kernel at least once an estimator
+   run);
+13. stream_mono: ``run_mono_vo_streaming`` over the 24 frames of
    ``slice_undistorted`` (seen through the lens, its plan) from an
    ``ArraySource`` in chunks of 8: one kernel launch a frame, the outputs
    and final state equal ``preprocess_frame`` then ``run_mono_vo`` with the
@@ -76,53 +91,53 @@ preprocessed slice print side lines):
    the checkpoint in chunks of 5 (10 frames): outputs and final state equal
    the uninterrupted run's bit for bit; frames/s, ms per frame (stream and
    bulk, same frames), the time of a checkpoint write;
-12. stream_stereo: the same for the 24 pairs of ``slice_stereo`` under two
+14. stream_stereo: the same for the 24 pairs of ``slice_stereo`` under two
    plans without distortion or CLAHE: two launches a frame;
-13. cli_mono and 14. cli_stereo: ``ergo_uvo_tpu_torch.cli.main`` on 24
+15. cli_mono and 16. cli_stereo: ``ergo_uvo_tpu_torch.cli.main`` on 24
    synthetic 640x480 frames (pairs), the main paths' configs through
    ``--params``, chunks of 8, no ``--device``: valid == published on frames
    1..23, a finite ATE, every chunk's outputs on the card when read back,
    the launches a frame, and the CLI's summary;
-15. plain_jacobi: the first 12 frames of ``slice`` and of ``slice_stereo``
+17. plain_jacobi: the first 12 frames of ``slice`` and of ``slice_stereo``
    through the kernel, then with ``jacobi_eigh_reference`` patched in from
    here (``linalg.jacobi_eigh``, ``p3p.jacobi_eigh``): no Jacobi launch in
    the patched runs, every output field equal bit for bit, ms per frame of
    both;
-16.-18. slice_sift, slice_orb, slice_akaze: ``bench.py``'s detector configs
+18.-20. slice_sift, slice_orb, slice_akaze: ``bench.py``'s detector configs
    (512 keypoints, 512 hypotheses) on the slice's 24 frames, ORB through
    ``run_mono_vo_batched_features``: 24 launches (D = 128, 256, 512), the
    outputs against ground truth and against the JAX package's CPU run of
    the same frames (medians over generator seeds 0-4), and one frame's
    frontend timed, profiled and run under
    ``torch.cuda.set_sync_debug_mode("error")``;
-19. accuracy_sift and 20. accuracy_stereo_sift: ``bench.py::section_parity``'s
+21. accuracy_sift and 22. accuracy_stereo_sift: ``bench.py::section_parity``'s
    SIFT configs and sequences (mono: 3 seeds of 24 frames of 320x240;
    stereo: 2 seeds of 16 pairs), mean velocity RMSE and ATE held to bounds
    set from the port's own CPU run, beside the JAX package's figures;
-21. cli_mono_sift: the CLI as in 13 with ``feature_detector: SIFT``;
-22. ba: ``bench.py::section_ba``'s window BA problem (8 poses, 512
+23. cli_mono_sift: the CLI as in 15 with ``feature_detector: SIFT``;
+24. ba: ``bench.py::section_ba``'s window BA problem (8 poses, 512
    landmarks, 2 fixed poses) through ``ba_solve``: 30 LM iterations under
    ``torch.cuda.set_sync_debug_mode("error")``, the final cost against the
    starting one, the fixed poses, the card's result against the port's CPU
    run of the same arrays; LM iterations/s by the iteration-count slope
    (30 and 330), launches an iteration and the device-idle share under
    torch.profiler;
-23. trajectory_ba: ``tests/test_trajectory.py``'s fixture (36 frames of
+25. trajectory_ba: ``tests/test_trajectory.py``'s fixture (36 frames of
    320x240, the starved VO config) through ``run_mono_vo`` then
    ``refine_mono_trajectory`` (window 6, stride 2, 12 iterations): its
    gates (ATE below 0.7x the raw one, non-increasing cost curves), the
    kernel's launches (one a window member but the anchor) and
    ``ba_iters_per_s``;
-24. loop_closure: ``close_loops_and_optimize`` on ``make_loop_sequence(20,
+26. loop_closure: ``close_loops_and_optimize`` on ``make_loop_sequence(20,
    240, 320, seed=2)`` with the test's drift: a loop with j - i >= 12
    accepted, the endpoint error shrunk 5x, the candidates verified; the
    pose graph of its loops run twice on the card and once on the CPU,
    within 1e-3 m (its scatter-adds are atomic on the card);
-25. cli_mono_opt and 26. cli_stereo_opt: the CLI as in 13 and 14 with
+27. cli_mono_opt and 28. cli_stereo_opt: the CLI as in 15 and 16 with
    ``--ba-window 6 --keyframe-stride 3 --ba-iters 12 --loop-closure``: the
    summary's ``ba_keyframes``, ``ba_solves``, ``ba_iters_per_s`` and
    ``loops_accepted``, and the launches beyond the VO's;
-27. dist_ba: a world of 1 on NCCL (one card; the cross-rank arithmetic is
+29. dist_ba: a world of 1 on NCCL (one card; the cross-rank arithmetic is
    held by the CPU tests on gloo worlds of 2 and 4):
    ``tools/bench_scaling_2proc.py``'s problem (8 poses, 16,384 landmarks, 2
    fixed poses, 30 LM iterations) through ``sharded_ba_solve`` on a 1-D mesh
@@ -133,7 +148,7 @@ preprocessed slice print side lines):
    iteration-count slope (30 and 330), launches an iteration and the
    device-idle share of each solver, and the time of one NCCL
    ``all_reduce`` of the packed buffer; the group is destroyed at the end;
-28. dist_vo: a world of 1 on NCCL: ``run_mono_vo_batch`` under the main
+30. dist_vo: a world of 1 on NCCL: ``run_mono_vo_batch`` under the main
    path's config on 4 streams of 12 frames of 640x480
    (``make_mono_sequence`` seeds 1-4) fed by ``shard_frame_batches``: 48
    kernel launches, each stream equal to ``run_mono_vo`` with generator seed
@@ -1266,6 +1281,85 @@ def _bench_rig(torch, seq):
              t_right=np.asarray([-0.33, 0.0, 0.0], np.float32)), torch.device("cuda"))
 
 
+PARITY_FIXTURE = "tests/fixtures/torch_parity_main.npz"
+PARITY_FRAMES = 12  # frames (pairs) of each parity phase, as the fixture holds them
+
+
+def phase_parity(torch, kind):
+    """The port's ``kind`` runner on the card, given JAX's minimal sets,
+    held frame by frame to the JAX package's eager outputs in the parity
+    fixture; returns the top-2 kernel's launches."""
+    import numpy as np
+
+    import ergo_uvo_tpu_torch.config as tconfig
+    from ergo_uvo_tpu_torch.eval import parity
+    from ergo_uvo_tpu_torch.pipeline import run_mono_vo, run_stereo_vo
+
+    phase = f"parity_{kind}"
+    start = time.perf_counter()
+    fixture = parity.load_fixture(ROOT / PARITY_FIXTURE)
+    seq = parity.fixture_sequence(fixture, kind)  # raises unless the frames hash as stored
+    cfg = parity.fixture_config(fixture, kind, tconfig)
+    check(cfg == (_main_path_config() if kind == "mono" else _stereo_config()),
+          f"{phase}: the fixture's config is not the main path's")
+    sampler = parity.FixtureSampler(fixture, kind)
+    n = len(seq.timestamps)
+    check(n == PARITY_FRAMES, f"{phase}: the fixture holds {n} frames, not {PARITY_FRAMES}")
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    if kind == "mono":
+        _, outs = run_mono_vo(seq.imgs_left, seq.timestamps, seq.ranges, seq.K, cfg,
+                              sampler=sampler)
+    else:
+        _, outs = run_stereo_vo(seq.imgs_left, seq.imgs_right, seq.timestamps,
+                                _bench_rig(torch, seq), cfg, sampler=sampler)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_counts(phase)
+    jacobi = JACOBI_BY_PATH[phase]
+
+    port = {k: v.cpu().numpy() for k, v in outs._asdict().items()}
+    contract = parity.CONTRACTS[kind]
+    eager = parity.reference_outputs(fixture, kind)
+    report = parity.contract_report(port, eager, contract)
+    jit_vs_eager = parity.contract_report(parity.reference_outputs(fixture, kind, "jit"), eager,
+                                          contract)
+    discrete = contract.exact + contract.counts
+    per_frame = 1 if kind == "mono" else 2
+    emit({"phase": phase, "frames": n, "height": seq.imgs_left.shape[1],
+          "width": seq.imgs_left.shape[2], "max_keypoints": cfg.max_keypoints,
+          "num_hypotheses": cfg.num_hypotheses, "fixture": PARITY_FIXTURE,
+          "kernel_launches": launches, "jacobi_launches": jacobi,
+          "estimator_runs": len(sampler.asked), "seconds": seconds,
+          "frames_per_second": n / seconds,
+          "phase_seconds": time.perf_counter() - start,  # the frames' regeneration and hash too
+          "mask_failures": sampler.failures, "contract_failures": report["failures"],
+          "max_abs_diff": report["max_abs"],
+          "frames_counts_exact": report["frames_counts_exact"],
+          "frames_differing": report["frames_differing"],
+          "jax_jit_vs_eager_frames": jit_vs_eager["frames_differing"],
+          "jax_jit_vs_eager_max_abs_diff": jit_vs_eager["max_abs"],
+          "card": {f: port[f].astype(int).tolist() for f in discrete},
+          "jax_eager": {f: eager[f].astype(int).tolist() for f in discrete}})
+    # Checked after the line is out, so that a miss shows its numbers.
+    check(all(x.is_cuda for x in outs), f"{phase}: the runner's outputs are not on the card")
+    check(not sampler.failures, f"{phase}: the card's masks are not JAX's: {sampler.failures}")
+    check(sorted(sampler.asked) == parity.set_entries(fixture, kind),
+          f"{phase}: the card ran the estimators {sorted(sampler.asked)}, JAX "
+          f"{parity.set_entries(fixture, kind)}")
+    check(not report["failures"], f"{phase}: the contract fails: {report['failures']}")
+    for f in contract.atol:
+        check(bool(np.isfinite(port[f]).all()), f"{phase}: {f} has non-finite values")
+    check(launches == per_frame * n,
+          f"{phase}: the top-2 kernel launched {launches} times in {n} frames, "
+          f"expected {per_frame} a frame")
+    check(jacobi >= len(sampler.asked),
+          f"{phase}: the Jacobi kernel launched {jacobi} times for {len(sampler.asked)} "
+          "estimator runs")
+    return launches
+
+
 class _Stop(Exception):
     """Raised by a chunk callback to end a streamed run, as a crash would."""
 
@@ -2188,13 +2282,16 @@ def main() -> int:
              "slice_preprocessed": preprocessed_launches,
              "slice_batched": phase_slice_batched(torch, seq, slice_outs),
              "slice_stereo": phase_slice_stereo(torch),
+             "parity_mono": phase_parity(torch, "mono"),
+             "parity_stereo": phase_parity(torch, "stereo"),
              "stream_mono": phase_stream_mono(torch, lens),
              "stream_stereo": phase_stream_stereo(torch),
              "cli_mono": phase_cli(torch, "mono"),
              "cli_stereo": phase_cli(torch, "stereo")}
     phase_plain_jacobi(torch, seq)
     frames_by_path = {"slice": N_FRAMES, "slice_preprocessed": N_FRAMES, "slice_batched": N_BATCHED,
-                      "slice_stereo": N_FRAMES, "stream_mono": N_FRAMES,
+                      "slice_stereo": N_FRAMES, "parity_mono": PARITY_FRAMES,
+                      "parity_stereo": PARITY_FRAMES, "stream_mono": N_FRAMES,
                       "stream_stereo": N_FRAMES, "cli_mono": N_FRAMES, "cli_stereo": N_FRAMES}
     for det in ("SIFT", "ORB", "AKAZE"):
         paths[f"slice_{det.lower()}"] = phase_slice_detector(torch, seq, det)

@@ -1,6 +1,10 @@
 """Feature detection, description and matching (PyTorch): SURF, SIFT, ORB, AKAZE."""
 
-from ergo_uvo_tpu_torch.features.akaze import detect_and_describe_akaze  # noqa: F401
+from ergo_uvo_tpu_torch.features.akaze import (  # noqa: F401
+    describe_akaze,
+    detect_akaze,
+    detect_and_describe_akaze,
+)
 from ergo_uvo_tpu_torch.features.descriptor import (  # noqa: F401
     describe_surf,
     describe_upright_surf,

@@ -61,3 +61,27 @@ def pad_integral(ii: torch.Tensor, margin: int) -> torch.Tensor:
     i.e. pixels outside the image count as zero in every box sum.
     """
     return F.pad(ii[None], (margin, margin, margin, margin), mode="replicate")[0]
+
+
+def box_sum(
+    ii_padded: torch.Tensor,
+    margin: int,
+    h: int,
+    w: int,
+    y0: int,
+    x0: int,
+    y1: int,
+    x1: int,
+) -> torch.Tensor:
+    """Box sum of img[y+y0 : y+y1, x+x0 : x+x1] for every pixel (y, x).
+
+    ``ii_padded`` is ``pad_integral(integral_image(img), margin)``; offsets are
+    relative to the pixel and must satisfy |offset| <= margin.  Returns
+    (..., h, w): four static slices of the table, added in the reference's
+    order.
+    """
+
+    def corner(dy: int, dx: int) -> torch.Tensor:
+        return ii_padded[..., margin + dy : margin + dy + h, margin + dx : margin + dx + w]
+
+    return corner(y1, x1) - corner(y0, x1) - corner(y1, x0) + corner(y0, x0)

@@ -5,9 +5,11 @@ default device, and the port's freedom from JAX.
 
 The slice runs under the config of tests/test_pipeline.py:219-227 (SURF,
 min_hessian 60, 128 keypoints, 64 hypotheses, LMEDS) on 8 frames of 160x128
-from ``make_mono_sequence(seed=3)``: raw and preprocessed frames then have
-one shape, so the file's two JAX ``run_mono_vo`` runs go through one jitted
-call, which traces and compiles once.
+from ``make_mono_sequence(seed=3)``.  The file's two JAX ``run_mono_vo``
+runs (raw and preprocessed frames) run under ``jax.disable_jit()``, the run
+the port is held to: at this size they give the jitted run's discrete
+outputs, and the first takes less time than tracing and compiling the
+scanned program on a cold cache; the second shares its per-op compiles.
 Both packages draw the same minimal sets: the port's sampler calls the JAX
 package's ``sample_minimal_sets`` with the keys JAX derives,
 ``keys = split(key, 8)`` and ``k_e, k_h = split(keys[i])`` for frame i.
@@ -72,9 +74,11 @@ N_FRAMES = 8
 KEY = jax.random.PRNGKey(0)
 MID = 3  # the step test starts from the JAX state after this frame
 LENS_DISTORTION = np.array([-0.05, 0.01, 0.0, 0.0])  # the JAX package's benchmark plan
-# The file's two JAX runs (raw and preprocessed frames, one shape) share this
-# callable, so the second reuses the first's executable.
-j_run_mono_vo_jit = jax.jit(j_run_mono_vo, static_argnames="cfg")
+
+
+def j_run_mono_vo_eager(*args):
+    with jax.disable_jit():
+        return j_run_mono_vo(*args)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -121,7 +125,7 @@ def seq():
 
 @pytest.fixture(scope="module")
 def jax_outs(seq):
-    _, outs = j_run_mono_vo_jit(
+    _, outs = j_run_mono_vo_eager(
         jnp.asarray(seq.imgs_left), jnp.asarray(seq.timestamps), jnp.asarray(seq.ranges),
         jnp.asarray(seq.K), cfg_of(jconfig), KEY)
     return jax.tree.map(np.asarray, outs)
@@ -183,8 +187,8 @@ def jax_preprocessed(seq):
     h, w = seq.imgs_left.shape[1:]
     jplan = j_build_plan(seq.K, LENS_DISTORTION, w, h, w, True, 3.0)
     jimgs = jax.vmap(lambda im: j_preprocess_frame(jplan, im))(jnp.asarray(seq.imgs_left))
-    _, jouts = j_run_mono_vo_jit(jimgs, jnp.asarray(seq.timestamps), jnp.asarray(seq.ranges),
-                                 jplan.new_K, cfg_of(jconfig), KEY)
+    _, jouts = j_run_mono_vo_eager(jimgs, jnp.asarray(seq.timestamps),
+                                   jnp.asarray(seq.ranges), jplan.new_K, cfg_of(jconfig), KEY)
     return jplan, np.asarray(jimgs), jax.tree.map(np.asarray, jouts)
 
 
