@@ -196,21 +196,19 @@ JACOBI_BY_PATH: dict[str, int] = {}
 
 def _zero_counts() -> None:
     """Set every kernel's launch count to 0, just before a path is driven."""
-    from ergo_uvo_tpu_torch.features import top2_matcher
-    from ergo_uvo_tpu_torch.geometry import linalg
+    from ergo_uvo_tpu_torch.utils.profiling import COUNTERS
 
-    top2_matcher.LAUNCHES = 0
-    linalg.LAUNCHES = 0
+    COUNTERS["top2_distances.launches"] = 0
+    COUNTERS["jacobi_eigh.launches"] = 0
 
 
 def _read_counts(path: str) -> int:
     """Read every count just after the path ran: the Jacobi kernel's goes to
     ``JACOBI_BY_PATH[path]``, the top-2 kernel's is returned."""
-    from ergo_uvo_tpu_torch.features import top2_matcher
-    from ergo_uvo_tpu_torch.geometry import linalg
+    from ergo_uvo_tpu_torch.utils.profiling import COUNTERS
 
-    JACOBI_BY_PATH[path] = linalg.LAUNCHES
-    return top2_matcher.LAUNCHES
+    JACOBI_BY_PATH[path] = COUNTERS["jacobi_eigh.launches"]
+    return COUNTERS["top2_distances.launches"]
 
 
 def phase_device(torch):
@@ -619,6 +617,7 @@ def _bit_compare(torch, got, ref):
 def phase_jacobi(torch):
     """The Jacobi kernel against its plain version on the card, then timed."""
     from ergo_uvo_tpu_torch.geometry import linalg
+    from ergo_uvo_tpu_torch.utils.profiling import COUNTERS
 
     dev = torch.device("cuda")
     cases = _jacobi_inputs(torch, dev)
@@ -627,9 +626,9 @@ def phase_jacobi(torch):
     results, max_err, max_ulps = [], 0.0, 0
     for name, A, sweeps in runs:
         keep = A.clone()
-        before = linalg.LAUNCHES
+        before = COUNTERS["jacobi_eigh.launches"]
         w, v = linalg.jacobi_eigh(A, sweeps)
-        launched = linalg.LAUNCHES - before
+        launched = COUNTERS["jacobi_eigh.launches"] - before
         rw, rv = linalg.jacobi_eigh_reference(A, sweeps)
         torch.cuda.synchronize()
         (wb, wu, we), (vb, vu, ve) = _bit_compare(torch, w, rw), _bit_compare(torch, v, rv)
@@ -1161,8 +1160,8 @@ def phase_mono_stages(torch, seq):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from ergo_uvo_tpu_torch.geometry import linalg
     from ergo_uvo_tpu_torch.pipeline import run_mono_vo
+    from ergo_uvo_tpu_torch.utils.profiling import COUNTERS
 
     dev = torch.device("cuda")
     cfg = _main_path_config()
@@ -1175,13 +1174,13 @@ def phase_mono_stages(torch, seq):
         state, _ = run_mono_vo(imgs[:f], ts[:f], rg[:f], K, cfg, gen)
         stages.insert(0, {"frame": f, **_mono_stages(torch, state, imgs[f], K, cfg)})
     torch.cuda.synchronize()
-    before = linalg.LAUNCHES
+    before = COUNTERS["jacobi_eigh.launches"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run_mono_vo(imgs[mid:mid + 2], ts[mid:mid + 2], rg[mid:mid + 2], K, cfg, gen, state=state)
         torch.cuda.synchronize()
         profiled_s = time.perf_counter() - t0
-    solves = linalg.LAUNCHES - before
+    solves = COUNTERS["jacobi_eigh.launches"] - before
     events = prof.key_averages()
     device_us = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
@@ -1216,6 +1215,7 @@ def phase_plain_jacobi(torch, seq):
     from ergo_uvo_tpu_torch.geometry import linalg
     from ergo_uvo_tpu_torch.io import make_stereo_sequence
     from ergo_uvo_tpu_torch.pipeline import run_mono_vo, run_stereo_vo
+    from ergo_uvo_tpu_torch.utils.profiling import COUNTERS
 
     # The module: the package's name p3p is the function.
     p3p = importlib.import_module("ergo_uvo_tpu_torch.estimation.p3p")
@@ -1238,13 +1238,13 @@ def phase_plain_jacobi(torch, seq):
             if route == "plain":
                 linalg.jacobi_eigh = p3p.jacobi_eigh = linalg.jacobi_eigh_reference
             try:
-                before = linalg.LAUNCHES
+                before = COUNTERS["jacobi_eigh.launches"]
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 _, outs = run(torch.Generator(device=dev).manual_seed(0))
                 torch.cuda.synchronize()
                 seconds = time.perf_counter() - t0
-                launched = linalg.LAUNCHES - before
+                launched = COUNTERS["jacobi_eigh.launches"] - before
             finally:
                 linalg.jacobi_eigh, p3p.jacobi_eigh = real
             got[route] = ({f: getattr(outs, f).cpu().numpy() for f in outs._fields}, launched,

@@ -25,6 +25,7 @@ from ergo_uvo_tpu_torch.geometry.linalg import smallest_eigvec, svd_or_nan
 from ergo_uvo_tpu_torch.geometry.rotations import skew, so3_exp
 from ergo_uvo_tpu_torch.geometry.stats import masked_median
 from ergo_uvo_tpu_torch.geometry.triangulation import triangulate_points
+from ergo_uvo_tpu_torch.utils.profiling import span
 
 # OpenCV recoverPose's cheirality distance gate (five-point.cpp).
 _RECOVER_POSE_DISTANCE = 50.0
@@ -89,37 +90,38 @@ def recover_pose_from_essential(
     distance gate.  Equal votes go to the first candidate in the order
     (R1, t), (R1, -t), (R2, t), (R2, -t).
     """
-    u, _, vt = svd_or_nan(E)
-    # Proper rotations only.
-    u = u * torch.sign(torch.linalg.det(u))
-    vt = vt * torch.sign(torch.linalg.det(vt))[..., None]
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
-    R1 = u @ W @ vt
-    R2 = u @ W.T @ vt
-    t = u[..., :, 2]
+    with span("essential.recover_pose"):
+        u, _, vt = svd_or_nan(E)
+        # Proper rotations only.
+        u = u * torch.sign(torch.linalg.det(u))
+        vt = vt * torch.sign(torch.linalg.det(vt))[..., None]
+        W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
+                         dtype=E.dtype, device=E.device)
+        R1 = u @ W @ vt
+        R2 = u @ W.T @ vt
+        t = u[..., :, 2]
 
-    P1 = torch.cat([torch.eye(3, dtype=E.dtype, device=E.device),
-                    torch.zeros(3, 1, dtype=E.dtype, device=E.device)], dim=1)
+        P1 = torch.cat([torch.eye(3, dtype=E.dtype, device=E.device),
+                        torch.zeros(3, 1, dtype=E.dtype, device=E.device)], dim=1)
 
-    def good_mask(R, tt):
-        P2 = torch.cat([R, tt[:, None]], dim=1)
-        X = triangulate_points(P1, P2, x1n, x2n)
-        z1 = X[:, 2]
-        z2 = (X @ R.T + tt)[:, 2]
-        finite = torch.isfinite(X).all(-1)
-        return (
-            mask & finite
-            & (z1 > 0) & (z1 < _RECOVER_POSE_DISTANCE)
-            & (z2 > 0) & (z2 < _RECOVER_POSE_DISTANCE)
-        )
+        def good_mask(R, tt):
+            P2 = torch.cat([R, tt[:, None]], dim=1)
+            X = triangulate_points(P1, P2, x1n, x2n)
+            z1 = X[:, 2]
+            z2 = (X @ R.T + tt)[:, 2]
+            finite = torch.isfinite(X).all(-1)
+            return (
+                mask & finite
+                & (z1 > 0) & (z1 < _RECOVER_POSE_DISTANCE)
+                & (z2 > 0) & (z2 < _RECOVER_POSE_DISTANCE)
+            )
 
-    cands = [(R1, t), (R1, -t), (R2, t), (R2, -t)]
-    masks = torch.stack([good_mask(R, tt) for R, tt in cands])  # (4, N)
-    best = torch.argmax(masks.sum(-1))
-    Rs = torch.stack([c[0] for c in cands])
-    ts = torch.stack([c[1] for c in cands])
-    return Rs[best], ts[best], masks[best]
+        cands = [(R1, t), (R1, -t), (R2, t), (R2, -t)]
+        masks = torch.stack([good_mask(R, tt) for R, tt in cands])  # (4, N)
+        best = torch.argmax(masks.sum(-1))
+        Rs = torch.stack([c[0] for c in cands])
+        ts = torch.stack([c[1] for c in cands])
+        return Rs[best], ts[best], masks[best]
 
 
 def refit_essential(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -152,31 +154,32 @@ def gn_refine_essential(
 ) -> torch.Tensor:
     """Gauss-Newton Sampson minimization over E = [t]_x R (5 dof), Cauchy IRLS
     on top of the inlier weights ``w``; falls back to E0 if it diverges."""
-    R, t, _ = recover_pose_from_essential(E0, x1, x2, w > 0)
-    X1 = _homogeneous(x1)
-    X2 = _homogeneous(x2)
-    eye5 = torch.eye(5, dtype=x1.dtype, device=x1.device)
+    with span("essential.refine"):
+        R, t, _ = recover_pose_from_essential(E0, x1, x2, w > 0)
+        X1 = _homogeneous(x1)
+        X2 = _homogeneous(x2)
+        eye5 = torch.eye(5, dtype=x1.dtype, device=x1.device)
 
-    for _ in range(iters):
-        def resid(p, R=R, t=t):
-            E, _, _ = _params_to_E(p, R, t)
-            Ex1 = X1 @ E.T
-            Etx2 = X2 @ E
-            num = (X2 * Ex1).sum(-1)
-            den = Ex1[:, 0] ** 2 + Ex1[:, 1] ** 2 + Etx2[:, 0] ** 2 + Etx2[:, 1] ** 2
-            return num / torch.sqrt(torch.clamp(den, min=1e-12))
+        for _ in range(iters):
+            def resid(p, R=R, t=t):
+                E, _, _ = _params_to_E(p, R, t)
+                Ex1 = X1 @ E.T
+                Etx2 = X2 @ E
+                num = (X2 * Ex1).sum(-1)
+                den = Ex1[:, 0] ** 2 + Ex1[:, 1] ** 2 + Etx2[:, 0] ** 2 + Etx2[:, 1] ** 2
+                return num / torch.sqrt(torch.clamp(den, min=1e-12))
 
-        p0 = torch.zeros(5, dtype=x1.dtype, device=x1.device)
-        r = resid(p0)
-        delta = 1.4826 * masked_median(r.abs(), w > 0) + 1e-12
-        wr = w / (1.0 + (r / delta) ** 2)
-        J = jacfwd(resid)(p0)  # (N, 5)
-        H = J.T @ (wr[:, None] * J) + 1e-9 * eye5
-        dp = -torch.linalg.solve_ex(H, (J.T @ (wr * r))[:, None])[0][:, 0]
-        _, R, t = _params_to_E(dp, R, t)
+            p0 = torch.zeros(5, dtype=x1.dtype, device=x1.device)
+            r = resid(p0)
+            delta = 1.4826 * masked_median(r.abs(), w > 0) + 1e-12
+            wr = w / (1.0 + (r / delta) ** 2)
+            J = jacfwd(resid)(p0)  # (N, 5)
+            H = J.T @ (wr[:, None] * J) + 1e-9 * eye5
+            dp = -torch.linalg.solve_ex(H, (J.T @ (wr * r))[:, None])[0][:, 0]
+            _, R, t = _params_to_E(dp, R, t)
 
-    E = skew(t) @ R
-    return torch.where(torch.isfinite(E).all(), E, E0)
+        E = skew(t) @ R
+        return torch.where(torch.isfinite(E).all(), E, E0)
 
 
 def find_essential(
@@ -192,31 +195,32 @@ def find_essential(
 ):
     """findEssentialMat: (E, epipolar_inlier_mask); ``threshold`` in pixels,
     divided by the mean focal length as OpenCV does."""
-    x1 = _normalized(K, xy1)
-    x2 = _normalized(K, xy2)
-    idx, sets_valid = draw_minimal_sets(mask, num_hypotheses, 8, generator, sampler)
-    Es = eight_point_essential(x1[idx], x2[idx])  # (H, 3, 3)
-    r2 = sampson_error_sq(Es, x1, x2)  # (H, N)
-    thresh_norm = threshold / (0.5 * (K[0, 0] + K[1, 1]))
-    best, inliers = score_hypotheses(r2, mask, sets_valid, method, thresh_norm, model_points=8)
-    E_best = project_to_essential(Es[best])
+    with span("essential.fit"):
+        x1 = _normalized(K, xy1)
+        x2 = _normalized(K, xy2)
+        idx, sets_valid = draw_minimal_sets(mask, num_hypotheses, 8, generator, sampler)
+        Es = eight_point_essential(x1[idx], x2[idx])  # (H, 3, 3)
+        r2 = sampson_error_sq(Es, x1, x2)  # (H, N)
+        thresh_norm = threshold / (0.5 * (K[0, 0] + K[1, 1]))
+        best, inliers = score_hypotheses(r2, mask, sets_valid, method, thresh_norm, model_points=8)
+        E_best = project_to_essential(Es[best])
 
-    # LMEDS: exactly one refit keeping the winner's inlier mask.  RANSAC:
-    # LO-style iterated refit against the fixed threshold, with a collapse guard.
-    E_out, inl_out = E_best, inliers
-    rounds = 1 if method == LMEDS else 3
-    for _ in range(rounds):
-        E_refit = refit_essential(x1, x2, inl_out.to(x1.dtype))
-        finite = torch.isfinite(E_refit).all()
-        if method == LMEDS:
-            E_out = torch.where(finite, E_refit, E_out)
-        else:
-            r2_ref = sampson_error_sq(E_refit, x1, x2)
-            inl_ref = inlier_mask_for_model(r2_ref, mask, method, thresh_norm, 8)
-            n_ref = inl_ref.sum()
-            n_old = inl_out.sum()
-            ok = finite & (n_ref >= torch.clamp(n_old // 2, min=8))
-            E_out = torch.where(ok, E_refit, E_out)
-            inl_out = torch.where(ok, inl_ref, inl_out)
-    E_out = gn_refine_essential(E_out, x1, x2, inl_out.to(x1.dtype))
-    return E_out, inl_out
+        # LMEDS: exactly one refit keeping the winner's inlier mask.  RANSAC:
+        # LO-style iterated refit against the fixed threshold, with a collapse guard.
+        E_out, inl_out = E_best, inliers
+        rounds = 1 if method == LMEDS else 3
+        for _ in range(rounds):
+            E_refit = refit_essential(x1, x2, inl_out.to(x1.dtype))
+            finite = torch.isfinite(E_refit).all()
+            if method == LMEDS:
+                E_out = torch.where(finite, E_refit, E_out)
+            else:
+                r2_ref = sampson_error_sq(E_refit, x1, x2)
+                inl_ref = inlier_mask_for_model(r2_ref, mask, method, thresh_norm, 8)
+                n_ref = inl_ref.sum()
+                n_old = inl_out.sum()
+                ok = finite & (n_ref >= torch.clamp(n_old // 2, min=8))
+                E_out = torch.where(ok, E_refit, E_out)
+                inl_out = torch.where(ok, inl_ref, inl_out)
+        E_out = gn_refine_essential(E_out, x1, x2, inl_out.to(x1.dtype))
+        return E_out, inl_out

@@ -26,6 +26,7 @@ from ergo_uvo_tpu_torch.estimation.robust import inlier_mask_for_model, score_hy
 from ergo_uvo_tpu_torch.estimation.sampling import Sampler, draw_minimal_sets
 from ergo_uvo_tpu_torch.geometry.linalg import smallest_eigvec, svd_or_nan
 from ergo_uvo_tpu_torch.geometry.triangulation import triangulate_points
+from ergo_uvo_tpu_torch.utils.profiling import span
 
 
 def four_point_homography(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
@@ -108,27 +109,28 @@ def recover_pose_homography(
 ):
     """The reference's candidate vote: (R, t unit, num_good); with no vote at
     all, (R_prev, t_prev) pass through unchanged."""
-    Rs, ts, _ = decompose_homography(H, K)
-    eye = torch.eye(3, dtype=H.dtype, device=H.device)
-    P1 = K @ torch.cat([eye, torch.zeros(3, 1, dtype=H.dtype, device=H.device)], 1)
+    with span("homography.recover_pose"):
+        Rs, ts, _ = decompose_homography(H, K)
+        eye = torch.eye(3, dtype=H.dtype, device=H.device)
+        P1 = K @ torch.cat([eye, torch.zeros(3, 1, dtype=H.dtype, device=H.device)], 1)
 
-    def vote(R, t):
-        P2 = K @ torch.cat([R, t[:, None]], 1)
-        X = triangulate_points(P1, P2, xy1, xy2)
-        finite = torch.isfinite(X).all(-1)
-        z = X[:, 2]
-        good = inlier_mask & finite & (z > 0) & (z < homography_distance)
-        return good.sum()
+        def vote(R, t):
+            P2 = K @ torch.cat([R, t[:, None]], 1)
+            X = triangulate_points(P1, P2, xy1, xy2)
+            finite = torch.isfinite(X).all(-1)
+            z = X[:, 2]
+            good = inlier_mask & finite & (z > 0) & (z < homography_distance)
+            return good.sum()
 
-    votes = torch.stack([vote(Rs[i], ts[i]) for i in range(4)])
-    best = torch.argmax(votes)
-    max_good = votes[best]
-    t_best = ts[best]
-    t_best = t_best / torch.clamp(torch.linalg.vector_norm(t_best), min=1e-12)
-    found = max_good > 0
-    R = torch.where(found, Rs[best], R_prev)
-    t = torch.where(found, t_best, t_prev)
-    return R, t, max_good
+        votes = torch.stack([vote(Rs[i], ts[i]) for i in range(4)])
+        best = torch.argmax(votes)
+        max_good = votes[best]
+        t_best = ts[best]
+        t_best = t_best / torch.clamp(torch.linalg.vector_norm(t_best), min=1e-12)
+        found = max_good > 0
+        R = torch.where(found, Rs[best], R_prev)
+        t = torch.where(found, t_best, t_prev)
+        return R, t, max_good
 
 
 def _hartley_T(p: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -195,28 +197,29 @@ def find_homography(
     sampler: Sampler | None = None,
 ):
     """findHomography: (H, inlier_mask); ``threshold`` in pixels."""
-    idx, sets_valid = draw_minimal_sets(mask, num_hypotheses, 4, generator, sampler)
-    Hs = four_point_homography(xy1[idx], xy2[idx])
-    finite = torch.isfinite(Hs.reshape(Hs.shape[0], -1)).all(-1)
-    r2 = homography_transfer_error_sq(Hs, xy1, xy2)
-    best, inliers = score_hypotheses(
-        r2, mask, sets_valid & finite, method, threshold, model_points=4
-    )
+    with span("homography.fit"):
+        idx, sets_valid = draw_minimal_sets(mask, num_hypotheses, 4, generator, sampler)
+        Hs = four_point_homography(xy1[idx], xy2[idx])
+        finite = torch.isfinite(Hs.reshape(Hs.shape[0], -1)).all(-1)
+        r2 = homography_transfer_error_sq(Hs, xy1, xy2)
+        best, inliers = score_hypotheses(
+            r2, mask, sets_valid & finite, method, threshold, model_points=4
+        )
 
-    # Final polish (see essential.py for LMEDS single refit vs RANSAC iterated).
-    H_out, inl_out = Hs[best], inliers
-    rounds = 1 if method == LMEDS else 3
-    for _ in range(rounds):
-        H_refit = refit_homography(xy1, xy2, inl_out.to(xy1.dtype))
-        finite = torch.isfinite(H_refit).all()
-        if method == LMEDS:
-            H_out = torch.where(finite, H_refit, H_out)
-        else:
-            r2_ref = homography_transfer_error_sq(H_refit, xy1, xy2)
-            inl_ref = inlier_mask_for_model(r2_ref, mask, method, threshold, 4)
-            n_ref = inl_ref.sum()
-            n_old = inl_out.sum()
-            ok = finite & (n_ref >= torch.clamp(n_old // 2, min=4))
-            H_out = torch.where(ok, H_refit, H_out)
-            inl_out = torch.where(ok, inl_ref, inl_out)
-    return H_out, inl_out
+        # Final polish (see essential.py for LMEDS single refit vs RANSAC iterated).
+        H_out, inl_out = Hs[best], inliers
+        rounds = 1 if method == LMEDS else 3
+        for _ in range(rounds):
+            H_refit = refit_homography(xy1, xy2, inl_out.to(xy1.dtype))
+            finite = torch.isfinite(H_refit).all()
+            if method == LMEDS:
+                H_out = torch.where(finite, H_refit, H_out)
+            else:
+                r2_ref = homography_transfer_error_sq(H_refit, xy1, xy2)
+                inl_ref = inlier_mask_for_model(r2_ref, mask, method, threshold, 4)
+                n_ref = inl_ref.sum()
+                n_old = inl_out.sum()
+                ok = finite & (n_ref >= torch.clamp(n_old // 2, min=4))
+                H_out = torch.where(ok, H_refit, H_out)
+                inl_out = torch.where(ok, inl_ref, inl_out)
+        return H_out, inl_out

@@ -32,6 +32,7 @@ from ergo_uvo_tpu_torch.estimation.robust import score_hypotheses
 from ergo_uvo_tpu_torch.estimation.sampling import Sampler, draw_minimal_sets
 from ergo_uvo_tpu_torch.geometry.linalg import cbrt, polar_so3, smallest_eigvec
 from ergo_uvo_tpu_torch.geometry.rotations import skew, so3_exp
+from ergo_uvo_tpu_torch.utils.profiling import span
 
 
 class PnPResult(NamedTuple):
@@ -171,55 +172,60 @@ def solve_pnp_ransac(
     or from ``sampler(mask, num_hypotheses, 3)`` when one is given (tests
     only).  An all-false ``mask`` gives ``success`` False without raising.
     """
-    xn = torch.stack(
-        [(xy[..., 0] - K[0, 2]) / K[0, 0], (xy[..., 1] - K[1, 2]) / K[1, 1]], -1
-    )
-    idx, sets_valid = draw_minimal_sets(mask, num_hypotheses, 3, generator, sampler)
-    bearings = torch.cat([xn, torch.ones_like(xn[..., :1])], -1)
-    bearings = bearings / torch.linalg.vector_norm(bearings, dim=-1, keepdim=True)
-    Rs, ts, cand_valid = p3p(X[idx], bearings[idx])  # (H, 12, ...)
-    Rs = Rs.reshape(-1, 3, 3)
-    ts = ts.reshape(-1, 3)
-    cand_valid = (cand_valid & sets_valid[:, None]).reshape(-1)
-    finite = torch.isfinite(Rs).flatten(1).all(-1) & torch.isfinite(ts).all(-1)
-    r2 = _reproj_error_sq(Rs, ts, K, X, xy)  # (H*12, N)
-    best, inliers = score_hypotheses(
-        r2, mask, cand_valid & finite, RANSAC, reprojection_error, model_points=3
-    )
-    R_best, t_best = Rs[best], ts[best]
+    with span("pnp"):
+        with span("pnp.minimal"):
+            xn = torch.stack(
+                [(xy[..., 0] - K[0, 2]) / K[0, 0], (xy[..., 1] - K[1, 2]) / K[1, 1]], -1
+            )
+            idx, sets_valid = draw_minimal_sets(mask, num_hypotheses, 3, generator, sampler)
+            bearings = torch.cat([xn, torch.ones_like(xn[..., :1])], -1)
+            bearings = bearings / torch.linalg.vector_norm(bearings, dim=-1, keepdim=True)
+            Rs, ts, cand_valid = p3p(X[idx], bearings[idx])  # (H, 12, ...)
+            Rs = Rs.reshape(-1, 3, 3)
+            ts = ts.reshape(-1, 3)
+            cand_valid = (cand_valid & sets_valid[:, None]).reshape(-1)
+        with span("pnp.score"):
+            finite = torch.isfinite(Rs).flatten(1).all(-1) & torch.isfinite(ts).all(-1)
+            r2 = _reproj_error_sq(Rs, ts, K, X, xy)  # (H*12, N)
+            best, inliers = score_hypotheses(
+                r2, mask, cand_valid & finite, RANSAC, reprojection_error, model_points=3
+            )
+            R_best, t_best = Rs[best], ts[best]
 
-    thr2 = reprojection_error * reprojection_error
+        with span("pnp.refine"):
+            thr2 = reprojection_error * reprojection_error
 
-    # Cauchy-IRLS refinement over ALL masked correspondences (not just the
-    # hard-gated inlier set — a hard gate at ~noise level discards half the
-    # good measurements and biases the fit).  Masked slots may hold garbage
-    # coordinates, which would poison the normal equations through 0 * inf:
-    # sanitize them first.
-    X_safe = torch.where(mask[:, None], X, torch.eye(3, dtype=X.dtype, device=X.device)[2])
-    xy_safe = torch.where(mask[:, None], xy, 0.0)
-    delta = 0.7 * reprojection_error
-    support = 20.0 * reprojection_error
+            # Cauchy-IRLS refinement over ALL masked correspondences (not just
+            # the hard-gated inlier set — a hard gate at ~noise level discards
+            # half the good measurements and biases the fit).  Masked slots may
+            # hold garbage coordinates, which would poison the normal equations
+            # through 0 * inf: sanitize them first.
+            X_safe = torch.where(mask[:, None], X, torch.eye(3, dtype=X.dtype, device=X.device)[2])
+            xy_safe = torch.where(mask[:, None], xy, 0.0)
+            delta = 0.7 * reprojection_error
+            support = 20.0 * reprojection_error
 
-    R_ref, t_ref = R_best, t_best
-    for _ in range(2 * polish_rounds + 2):
-        r2 = _reproj_error_sq(R_ref, t_ref, K, X_safe, xy_safe)
-        r = torch.sqrt(torch.clamp(r2, min=1e-12))
-        w = 1.0 / (1.0 + (r / delta) ** 2)
-        w = torch.where(mask & torch.isfinite(r2) & (r < support), w, 0.0)
-        R_ref, t_ref = gauss_newton_pnp(R_ref, t_ref, K, X_safe, xy_safe, w, refine_iters // 2)
+            R_ref, t_ref = R_best, t_best
+            for _ in range(2 * polish_rounds + 2):
+                r2 = _reproj_error_sq(R_ref, t_ref, K, X_safe, xy_safe)
+                r = torch.sqrt(torch.clamp(r2, min=1e-12))
+                w = 1.0 / (1.0 + (r / delta) ** 2)
+                w = torch.where(mask & torch.isfinite(r2) & (r < support), w, 0.0)
+                R_ref, t_ref = gauss_newton_pnp(R_ref, t_ref, K, X_safe, xy_safe, w,
+                                                refine_iters // 2)
 
-    # Accept the refinement unless it diverged.  It is not required to beat
-    # the RANSAC winner's count: the winner is the argmax of threshold
-    # counting and overfits the gate, so the (more accurate) robust-loss
-    # minimizer often counts a few fewer 1 px inliers.
-    r2_ref = _reproj_error_sq(R_ref, t_ref, K, X_safe, xy_safe)
-    inl_ref = mask & (r2_ref <= thr2)
-    better = (
-        torch.isfinite(R_ref).all() & torch.isfinite(t_ref).all()
-        & (2 * inl_ref.sum() >= inliers.sum())
-    )
-    R_out = torch.where(better, R_ref, R_best)
-    t_out = torch.where(better, t_ref, t_best)
-    inl_out = torch.where(better, inl_ref, inliers)
-    success = inl_out.sum() >= min_inliers
-    return PnPResult(R=R_out, t=t_out, inliers=inl_out, success=success)
+            # Accept the refinement unless it diverged.  It is not required to
+            # beat the RANSAC winner's count: the winner is the argmax of
+            # threshold counting and overfits the gate, so the (more accurate)
+            # robust-loss minimizer often counts a few fewer 1 px inliers.
+            r2_ref = _reproj_error_sq(R_ref, t_ref, K, X_safe, xy_safe)
+            inl_ref = mask & (r2_ref <= thr2)
+            better = (
+                torch.isfinite(R_ref).all() & torch.isfinite(t_ref).all()
+                & (2 * inl_ref.sum() >= inliers.sum())
+            )
+            R_out = torch.where(better, R_ref, R_best)
+            t_out = torch.where(better, t_ref, t_best)
+            inl_out = torch.where(better, inl_ref, inliers)
+            success = inl_out.sum() >= min_inliers
+            return PnPResult(R=R_out, t=t_out, inliers=inl_out, success=success)

@@ -20,6 +20,7 @@ import math
 import torch
 
 from ergo_uvo_tpu_torch.features.detector import Keypoints
+from ergo_uvo_tpu_torch.utils.profiling import span
 
 PATCH = 20  # PATCH_SZ, 4x4 subregions of 5x5 samples
 _GAUSS_SIGMA = 3.3  # Bay et al.: sigma = 3.3s over the 20s window
@@ -129,16 +130,17 @@ def describe_surf(
 ) -> torch.Tensor:
     """(..., K, 64|128) unit descriptors of (..., H, W) images; oriented
     when ``upright=False``."""
-    if upright:
-        return describe_upright_surf(img, kpts, extended)
-    *batch, h, w = img.shape
-    n_k = kpts.mask.shape[-1]
-    img = img.reshape(-1, h, w)
-    kp = Keypoints(*(f.reshape(img.shape[0], n_k, *f.shape[len(batch) + 1:]) for f in kpts))
-    theta = surf_orientations(img, kp)
-    patch = _sample_patches_rotated(img, kp.xy, kp.scale, torch.cos(theta), torch.sin(theta))
-    desc = _descriptor_from_patch(patch.flatten(0, 1), kp.mask.reshape(-1), extended)
-    return desc.reshape(*batch, n_k, -1)
+    with span("detect.describe"):
+        if upright:
+            return describe_upright_surf(img, kpts, extended)
+        *batch, h, w = img.shape
+        n_k = kpts.mask.shape[-1]
+        img = img.reshape(-1, h, w)
+        kp = Keypoints(*(f.reshape(img.shape[0], n_k, *f.shape[len(batch) + 1:]) for f in kpts))
+        theta = surf_orientations(img, kp)
+        patch = _sample_patches_rotated(img, kp.xy, kp.scale, torch.cos(theta), torch.sin(theta))
+        desc = _descriptor_from_patch(patch.flatten(0, 1), kp.mask.reshape(-1), extended)
+        return desc.reshape(*batch, n_k, -1)
 
 
 def describe_upright_surf(

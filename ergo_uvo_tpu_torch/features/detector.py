@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from ergo_uvo_tpu_torch.features.integral import integral_image, pad_integral
 from ergo_uvo_tpu_torch.geometry.triangulation import _solve33
+from ergo_uvo_tpu_torch.utils.profiling import span
 
 # SURF 9x9 base patterns: (x0, y0, x1, y1, weight), half-open boxes relative
 # to the filter's top-left corner (Bay et al. Fig. 2; OpenCV's dx_s/dy_s/dxy_s).
@@ -220,44 +221,45 @@ def detect_surf(
     Slots beyond the number of detections have mask=False and zero fields.
     Leading dimensions are frames and lead every field of the result.
     """
-    *batch, h, w = img.shape
-    img = img.reshape(-1, h, w)
-    sizes = filter_sizes(n_octaves, n_layers)
-    max_size = sizes[-1][-1]
-    # Pattern corner offsets are in [-size//2, size - size//2]; +2 slack.
-    margin = max_size // 2 + 2
-    iip = pad_integral(integral_image(img), margin)
+    with span("detect.hessian"):
+        *batch, h, w = img.shape
+        img = img.reshape(-1, h, w)
+        sizes = filter_sizes(n_octaves, n_layers)
+        max_size = sizes[-1][-1]
+        # Pattern corner offsets are in [-size//2, size - size//2]; +2 slack.
+        margin = max_size // 2 + 2
+        iip = pad_integral(integral_image(img), margin)
 
-    per_octave = []
-    for octave in range(n_octaves):
-        dets, traces = hessian_octave(iip, margin, h, w, octave, sizes[octave])
-        per_octave.append(
-            _octave_candidates(
-                dets, traces, octave, sizes[octave], h, w,
-                max_keypoints, min_hessian,
+        per_octave = []
+        for octave in range(n_octaves):
+            dets, traces = hessian_octave(iip, margin, h, w, octave, sizes[octave])
+            per_octave.append(
+                _octave_candidates(
+                    dets, traces, octave, sizes[octave], h, w,
+                    max_keypoints, min_hessian,
+                )
             )
+
+        # ---- global top-K merge across octaves.
+        scores = torch.cat([p[0] for p in per_octave], dim=-1)
+        xy = torch.cat([p[1] for p in per_octave], dim=-2)
+        sigma = torch.cat([p[2] for p in per_octave], dim=-1)
+        lap = torch.cat([p[3] for p in per_octave], dim=-1)
+        mask = torch.cat([p[4] for p in per_octave], dim=-1)
+
+        merged = torch.where(mask, scores, float("-inf"))
+        top_scores, top_idx = top_k(merged, max_keypoints)
+        top_mask = torch.isfinite(top_scores)
+        frame = torch.arange(img.shape[0], device=img.device)[:, None]
+        xy = xy[frame, top_idx]
+        sigma = sigma[frame, top_idx]
+        lap = lap[frame, top_idx]
+        zero = torch.zeros_like(sigma)
+        kpts = Keypoints(
+            xy=torch.where(top_mask[..., None], xy, 0.0),
+            scale=torch.where(top_mask, sigma, zero),
+            score=torch.where(top_mask, top_scores, zero),
+            laplacian=torch.where(top_mask, lap, zero),
+            mask=top_mask,
         )
-
-    # ---- global top-K merge across octaves.
-    scores = torch.cat([p[0] for p in per_octave], dim=-1)
-    xy = torch.cat([p[1] for p in per_octave], dim=-2)
-    sigma = torch.cat([p[2] for p in per_octave], dim=-1)
-    lap = torch.cat([p[3] for p in per_octave], dim=-1)
-    mask = torch.cat([p[4] for p in per_octave], dim=-1)
-
-    merged = torch.where(mask, scores, float("-inf"))
-    top_scores, top_idx = top_k(merged, max_keypoints)
-    top_mask = torch.isfinite(top_scores)
-    frame = torch.arange(img.shape[0], device=img.device)[:, None]
-    xy = xy[frame, top_idx]
-    sigma = sigma[frame, top_idx]
-    lap = lap[frame, top_idx]
-    zero = torch.zeros_like(sigma)
-    kpts = Keypoints(
-        xy=torch.where(top_mask[..., None], xy, 0.0),
-        scale=torch.where(top_mask, sigma, zero),
-        score=torch.where(top_mask, top_scores, zero),
-        laplacian=torch.where(top_mask, lap, zero),
-        mask=top_mask,
-    )
-    return Keypoints(*(f.reshape(*batch, *f.shape[1:]) for f in kpts))
+        return Keypoints(*(f.reshape(*batch, *f.shape[1:]) for f in kpts))

@@ -16,6 +16,7 @@ from ergo_uvo_tpu_torch.features.descriptor import describe_surf
 from ergo_uvo_tpu_torch.features.detector import Keypoints, detect_surf
 from ergo_uvo_tpu_torch.features.orb import describe_orb, detect_orb
 from ergo_uvo_tpu_torch.features.sift import detect_and_describe_sift
+from ergo_uvo_tpu_torch.utils.profiling import span
 
 
 def detect_and_describe(
@@ -35,40 +36,41 @@ def detect_and_describe(
     486 bits padded to 512, the binary two as {0,1} floats: match those with
     ``binary=True``.
     """
-    name = feature_detector.upper()
-    if name == "ORB":
-        kpts = detect_orb(img, max_keypoints=max_keypoints, threshold=orb_threshold)
-        return kpts, describe_orb(img, kpts)
-    if name == "AKAZE":
-        return detect_and_describe_akaze(
+    with span("detect"):
+        name = feature_detector.upper()
+        if name == "ORB":
+            kpts = detect_orb(img, max_keypoints=max_keypoints, threshold=orb_threshold)
+            return kpts, describe_orb(img, kpts)
+        if name == "AKAZE":
+            return detect_and_describe_akaze(
+                img,
+                max_keypoints=max_keypoints,
+                threshold=akaze.threshold,
+                n_octaves=akaze.n_octaves,
+                n_sublevels=akaze.n_sublevels,
+                upright=akaze.upright,
+            )
+        if name == "SIFT":
+            return detect_and_describe_sift(
+                img,
+                max_keypoints=max_keypoints,
+                contrast_thresh=sift_contrast_threshold,
+                edge_thresh=sift_edge_threshold,
+            )
+        if name != "SURF":
+            raise NotImplementedError(
+                f"feature_detector={feature_detector!r}: the reference dispatch "
+                "implements AKAZE, ORB, SIFT and SURF (VO_utility.cpp:91-126)"
+            )
+        kpts = detect_surf(
             img,
             max_keypoints=max_keypoints,
-            threshold=akaze.threshold,
-            n_octaves=akaze.n_octaves,
-            n_sublevels=akaze.n_sublevels,
-            upright=akaze.upright,
+            min_hessian=surf.min_hessian,
+            n_octaves=surf.n_octaves,
+            n_layers=surf.n_octave_layers,
         )
-    if name == "SIFT":
-        return detect_and_describe_sift(
-            img,
-            max_keypoints=max_keypoints,
-            contrast_thresh=sift_contrast_threshold,
-            edge_thresh=sift_edge_threshold,
-        )
-    if name != "SURF":
-        raise NotImplementedError(
-            f"feature_detector={feature_detector!r}: the reference dispatch "
-            "implements AKAZE, ORB, SIFT and SURF (VO_utility.cpp:91-126)"
-        )
-    kpts = detect_surf(
-        img,
-        max_keypoints=max_keypoints,
-        min_hessian=surf.min_hessian,
-        n_octaves=surf.n_octaves,
-        n_layers=surf.n_octave_layers,
-    )
-    desc = describe_surf(img, kpts, extended=surf.extended, upright=surf.upright)
-    return kpts, desc
+        desc = describe_surf(img, kpts, extended=surf.extended, upright=surf.upright)
+        return kpts, desc
 
 
 def detect_and_describe_cfg(img: torch.Tensor, cfg) -> tuple[Keypoints, torch.Tensor]:

@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from ergo_uvo_tpu_torch.features.top2_matcher import top2_distances
+from ergo_uvo_tpu_torch.utils.profiling import span
 
 
 class Matches(NamedTuple):
@@ -45,27 +46,28 @@ def match_descriptors(
     reference's NORM_HAMMING branch (VO_utility.cpp:524-529), and the ratio
     test runs on the Hamming distances themselves, with no square root.
     """
-    min1, idx1, min2 = top2_distances(desc_q, desc_t, mask_t)
-    d1 = torch.clamp(min1, min=0.0)
-    d2nd = torch.clamp(min2, min=0.0)
-    if not binary:
-        d1 = torch.sqrt(d1)
-        d2nd = torch.sqrt(d2nd)
-    n_train = mask_t.sum()
-    # OpenCV knnMatch(k=2) yields no pair when < 2 train descriptors exist.
-    ok = (
-        mask_q
-        & torch.isfinite(d1)
-        & torch.isfinite(d2nd)
-        & (d1 < ratio * d2nd)
-        & (n_train >= 2)
-    )
-    return Matches(
-        idx=torch.where(ok, idx1, 0),
-        dist=torch.where(ok, d1, 0.0),
-        second_dist=torch.where(ok, d2nd, 0.0),
-        mask=ok,
-    )
+    with span("match"):
+        min1, idx1, min2 = top2_distances(desc_q, desc_t, mask_t)
+        d1 = torch.clamp(min1, min=0.0)
+        d2nd = torch.clamp(min2, min=0.0)
+        if not binary:
+            d1 = torch.sqrt(d1)
+            d2nd = torch.sqrt(d2nd)
+        n_train = mask_t.sum()
+        # OpenCV knnMatch(k=2) yields no pair when < 2 train descriptors exist.
+        ok = (
+            mask_q
+            & torch.isfinite(d1)
+            & torch.isfinite(d2nd)
+            & (d1 < ratio * d2nd)
+            & (n_train >= 2)
+        )
+        return Matches(
+            idx=torch.where(ok, idx1, 0),
+            dist=torch.where(ok, d1, 0.0),
+            second_dist=torch.where(ok, d2nd, 0.0),
+            mask=ok,
+        )
 
 
 def match_and_gather(

@@ -17,8 +17,9 @@ valid column gives (+inf, 0, +inf).
   their partial results; the cluster size comes from the shape.
   :func:`launch_forced` launches it under a given size, for the checks that
   every size gives the same bits; nothing on the main path calls it.
-* ``LAUNCHES`` counts kernel launches, so a run can show that the main path
-  went through the kernel.
+* The counter ``top2_distances.launches`` of
+  :mod:`ergo_uvo_tpu_torch.utils.profiling` counts kernel launches, so a run
+  can show that the main path went through the kernel.
 """
 
 from __future__ import annotations
@@ -28,8 +29,7 @@ import ctypes
 import torch
 
 from ergo_uvo_tpu_torch.cuda_build import load_library
-
-LAUNCHES = 0
+from ergo_uvo_tpu_torch.utils.profiling import count
 
 
 def _masked_distances(desc_q: torch.Tensor, desc_t: torch.Tensor, mask_t: torch.Tensor):
@@ -95,7 +95,6 @@ def _launch(
 ):
     """Launch the kernel; ``splits`` None lets the C entry point pick the
     cluster size from the shape, as the main path does."""
-    global LAUNCHES
     for name, x in (("desc_q", desc_q), ("desc_t", desc_t), ("mask_t", mask_t)):
         if x.device != desc_q.device:
             raise ValueError(f"{name} is on {x.device}, desc_q on {desc_q.device}")
@@ -130,7 +129,7 @@ def _launch(
             err = lib.top2_distances_launch_forced(*ptrs, Q, T, D, splits, stream)
     if err != 0:
         raise RuntimeError(f"top2_distances kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    count("top2_distances.launches")
     return min1, idx1, min2
 
 

@@ -14,8 +14,9 @@ on the tensor's device:
   bit for bit, on the card.  Eager, each of a 9x9 solve's 252 rotations is
   about 50 elementwise launches, whatever the batch size.
 
-``LAUNCHES`` counts kernel launches, so a run can show that its solves went
-through the kernel.
+The counter ``jacobi_eigh.launches`` of :mod:`ergo_uvo_tpu_torch.utils.profiling`
+counts kernel launches, so a run can show that its solves went through the
+kernel.
 
 :func:`inv33` and :func:`polar_so3` are the closed-form 3x3 inverse and the
 Newton polar projection onto SO(3) that the PnP solver's DLT uses.
@@ -28,8 +29,7 @@ import ctypes
 import torch
 
 from ergo_uvo_tpu_torch.cuda_build import load_library
-
-LAUNCHES = 0
+from ergo_uvo_tpu_torch.utils.profiling import count
 KERNEL_SIZES = (3, 9, 12)  # the n the kernel is built for
 
 
@@ -95,7 +95,6 @@ def _library() -> ctypes.CDLL:
 
 def _launch(A: torch.Tensor, sweeps: int):
     """One launch for the whole batch; leading dimensions are flattened."""
-    global LAUNCHES
     if A.dtype != torch.float32:
         raise TypeError(f"jacobi_eigh: the kernel takes float32, got {A.dtype}")
     if A.ndim < 2 or A.shape[-1] != A.shape[-2]:
@@ -118,7 +117,7 @@ def _launch(A: torch.Tensor, sweeps: int):
                                      batch, n, sweeps, stream)
     if err != 0:
         raise RuntimeError(f"jacobi_eigh kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    count("jacobi_eigh.launches")
     return evals, evecs
 
 

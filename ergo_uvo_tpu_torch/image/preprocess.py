@@ -26,6 +26,7 @@ from ergo_uvo_tpu_torch.device import resolve_device
 from ergo_uvo_tpu_torch.features.sampling import resize_bilinear
 from ergo_uvo_tpu_torch.image import undistort as _und
 from ergo_uvo_tpu_torch.image.clahe import clahe
+from ergo_uvo_tpu_torch.utils.profiling import span
 
 
 def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
@@ -164,11 +165,12 @@ def preprocess_frame(plan: PreprocessPlan, img: torch.Tensor) -> torch.Tensor:
     is read as the colour channels.  Returns (..., new_h, new_w) float32 gray
     in [0, 255].
     """
-    if img.ndim >= 3 and img.shape[-1] == 3:
-        img = rgb_to_gray(img)
-    if tuple(img.shape[-2:]) != (plan.new_h, plan.new_w):
-        img = resize_area(img, plan.new_h, plan.new_w)
-    img = remap_bilinear(img, plan.grid, plan.disp)
-    if plan.clahe_enabled:
-        img = clahe(img, clip_limit=plan.clip_limit)
-    return img
+    with span("preprocess"):
+        if img.ndim >= 3 and img.shape[-1] == 3:
+            img = rgb_to_gray(img)
+        if tuple(img.shape[-2:]) != (plan.new_h, plan.new_w):
+            img = resize_area(img, plan.new_h, plan.new_w)
+        img = remap_bilinear(img, plan.grid, plan.disp)
+        if plan.clahe_enabled:
+            img = clahe(img, clip_limit=plan.clip_limit)
+        return img

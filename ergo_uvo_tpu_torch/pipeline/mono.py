@@ -49,6 +49,7 @@ from ergo_uvo_tpu_torch.geometry.triangulation import (
 )
 from ergo_uvo_tpu_torch.image.preprocess import PreprocessPlan, preprocess_frame
 from ergo_uvo_tpu_torch.utils.debug import check_frame
+from ergo_uvo_tpu_torch.utils.profiling import span
 
 # sampler(frame, method, mask, num_hypotheses, set_size) -> (idx, sets_valid)
 FrameSampler = Callable[[int, str, torch.Tensor, int, int], tuple]
@@ -174,32 +175,33 @@ def mono_vo_step_with_features(
     pose_success = pose.success & process
 
     # ---- triangulation + gating (visual_odometry.h:349-375).
-    eye3 = torch.eye(3, dtype=K.dtype, device=K.device)
-    zero3 = torch.zeros(3, dtype=K.dtype, device=K.device)
-    P1 = projection_matrix(K, eye3, zero3)
-    P2 = projection_matrix(K, pose.R, pose.t)
-    tri_mask = pose.triangulation_inliers & matches.mask
-    X = triangulate_points(P1, P2, prev_xy, curr_xy)
-    good_mask, _ = filter_3d_points(
-        X, tri_mask,
-        K, eye3, zero3, K, pose.R, pose.t,
-        prev_xy, curr_xy,
-        cfg.reprojection_threshold,
-        min_points=cfg.min_num_3d_points,
-    )
-    n_3d = good_mask.sum(dtype=torch.int32)
-    enough_3d = n_3d >= cfg.min_num_3d_points
+    with span("triangulate"):
+        eye3 = torch.eye(3, dtype=K.dtype, device=K.device)
+        zero3 = torch.zeros(3, dtype=K.dtype, device=K.device)
+        P1 = projection_matrix(K, eye3, zero3)
+        P2 = projection_matrix(K, pose.R, pose.t)
+        tri_mask = pose.triangulation_inliers & matches.mask
+        X = triangulate_points(P1, P2, prev_xy, curr_xy)
+        good_mask, _ = filter_3d_points(
+            X, tri_mask,
+            K, eye3, zero3, K, pose.R, pose.t,
+            prev_xy, curr_xy,
+            cfg.reprojection_threshold,
+            min_points=cfg.min_num_3d_points,
+        )
+        n_3d = good_mask.sum(dtype=torch.int32)
+        enough_3d = n_3d >= cfg.min_num_3d_points
 
-    # Cheirality in the current frame; Z stays in the previous frame
-    # (convert_3Dpoints_camera's source-frame return, VO_utility.cpp:46-63).
-    che_mask = good_mask & cheirality_mask(pose.R, pose.t, X)
-    n_che = che_mask.sum()
-    z_prev = X[:, 2]
-    sf_new = range_measure / torch.clamp(masked_median(z_prev, che_mask), min=1e-9)
+        # Cheirality in the current frame; Z stays in the previous frame
+        # (convert_3Dpoints_camera's source-frame return, VO_utility.cpp:46-63).
+        che_mask = good_mask & cheirality_mask(pose.R, pose.t, X)
+        n_che = che_mask.sum()
+        z_prev = X[:, 2]
+        sf_new = range_measure / torch.clamp(masked_median(z_prev, che_mask), min=1e-9)
 
-    update_sf = pose_success & enough_3d & (n_che > 0)
-    validity = update_sf
-    SF = torch.where(update_sf, sf_new, state.SF)
+        update_sf = pose_success & enough_3d & (n_che > 0)
+        validity = update_sf
+        SF = torch.where(update_sf, sf_new, state.SF)
 
     # On a processed frame the carried (R, t) take the estimator's output,
     # even when validity drops (the reference's members hold the last attempt).
@@ -269,10 +271,11 @@ def _step_frames(state, imgs, timestamps, ranges, K, cfg, generator, sampler, fi
     ``imgs[0]``, which the sampler and the nan guard see."""
     outs = []
     for i in range(imgs.shape[0]):
-        state, out = mono_vo_step(
-            state, imgs[i], timestamps[i], ranges[i], K, cfg, generator,
-            _bind_frame(sampler, first + i),
-        )
+        with span("step", frame=first + i):
+            state, out = mono_vo_step(
+                state, imgs[i], timestamps[i], ranges[i], K, cfg, generator,
+                _bind_frame(sampler, first + i),
+            )
         check_frame(out, first + i)
         outs.append(out)
     return state, MonoFrameOutput(*(torch.stack(field) for field in zip(*outs)))
@@ -337,10 +340,11 @@ def run_mono_vo_batched_features(
     kpts, descs = detect_and_describe_cfg(imgs, cfg)
     outs = []
     for i in range(imgs.shape[0]):
-        state, out = mono_vo_step_with_features(
-            state, Keypoints(*(f[i] for f in kpts)), descs[i], timestamps[i], ranges[i],
-            K, cfg, generator, _bind_frame(sampler, i),
-        )
+        with span("step", frame=i):
+            state, out = mono_vo_step_with_features(
+                state, Keypoints(*(f[i] for f in kpts)), descs[i], timestamps[i], ranges[i],
+                K, cfg, generator, _bind_frame(sampler, i),
+            )
         check_frame(out, i)
         outs.append(out)
     stacked = MonoFrameOutput(*(torch.stack(field) for field in zip(*outs)))
@@ -356,12 +360,13 @@ def check_plan_device(name: str, plan: PreprocessPlan, device: torch.device) -> 
 def read_back(outs: NamedTuple, device: torch.device) -> NamedTuple:
     """A chunk's stacked outputs as numpy: every field is copied to the host,
     then the host waits once, so the chunk's one read-back is its one sync."""
-    if device.type == "cuda":
-        host = [x.to("cpu", non_blocking=True) for x in outs]
-        torch.cuda.synchronize(device)
-    else:
-        host = list(outs)
-    return type(outs)(*(x.numpy() for x in host))
+    with span("read_back"):
+        if device.type == "cuda":
+            host = [x.to("cpu", non_blocking=True) for x in outs]
+            torch.cuda.synchronize(device)
+        else:
+            host = list(outs)
+        return type(outs)(*(x.numpy() for x in host))
 
 
 def concat_chunks(chunks: list) -> NamedTuple:
@@ -425,19 +430,24 @@ def run_mono_vo_streaming(
     for batch in source.batches(chunk_size):
         t0 = time.perf_counter()
         n = len(batch.imgs)
-        imgs = preprocess_frame(plan, upload(batch.imgs, device).float())
-        if frames is not None:
-            frames.append(imgs)
-        ranges = batch.ranges if batch.ranges is not None else np.ones(n, np.float32)
-        imgs, tss, rgs, K, state = _run_inputs(
-            "run_mono_vo_streaming", imgs, upload(batch.timestamps, device),
-            upload(ranges, device), K, cfg, generator, state, device,
-        )
-        state, outs = _step_frames(state, imgs, tss, rgs, K, cfg, generator, sampler, frames_done)
-        chunks.append(read_back(outs, device))
-        if timings is not None:
-            timings.append((n, time.perf_counter() - t0))
-        frames_done += n
-        if chunk_callback is not None:
-            chunk_callback(frames_done, state, chunks[-1], generator.get_state())
+        with span("chunk", frame=frames_done, frames=n):
+            with span("upload"):
+                raw = upload(batch.imgs, device).float()
+                ranges = batch.ranges if batch.ranges is not None else np.ones(n, np.float32)
+                tss, rgs = upload(batch.timestamps, device), upload(ranges, device)
+            imgs = preprocess_frame(plan, raw)
+            if frames is not None:
+                frames.append(imgs)
+            imgs, tss, rgs, K, state = _run_inputs(
+                "run_mono_vo_streaming", imgs, tss, rgs, K, cfg, generator, state, device,
+            )
+            state, outs = _step_frames(state, imgs, tss, rgs, K, cfg, generator, sampler,
+                                       frames_done)
+            chunks.append(read_back(outs, device))
+            if timings is not None:
+                timings.append((n, time.perf_counter() - t0))
+            frames_done += n
+            if chunk_callback is not None:
+                with span("callback"):
+                    chunk_callback(frames_done, state, chunks[-1], generator.get_state())
     return state, concat_chunks(chunks)

@@ -55,6 +55,7 @@ from ergo_uvo_tpu_torch.pipeline.mono import (
     read_back,
 )
 from ergo_uvo_tpu_torch.utils.debug import check_frame
+from ergo_uvo_tpu_torch.utils.profiling import span
 
 
 class StereoRig(NamedTuple):
@@ -163,21 +164,22 @@ def stereo_vo_step(
     tri_mask = tm.mask & tri_ok
 
     # ---- triangulate the PREVIOUS stereo pair in the prev-left frame (:631).
-    eye3 = torch.eye(3, dtype=img_l.dtype, device=img_l.device)
-    zero3 = torch.zeros(3, dtype=img_l.dtype, device=img_l.device)
-    P1 = projection_matrix(rig.K_left, eye3, zero3)
-    P2 = projection_matrix(rig.K_right, rig.R_right, rig.t_right)
-    X = triangulate_points(P1, P2, state.prev_xy_l, state.prev_xy_r)
-    good_mask, _ = filter_3d_points(
-        X, tri_mask,
-        rig.K_left, eye3, zero3,
-        rig.K_right, rig.R_right, rig.t_right,
-        state.prev_xy_l, state.prev_xy_r,
-        cfg.reprojection_threshold,
-        min_points=cfg.min_num_3d_points,
-    )
-    n_3d = good_mask.sum(dtype=torch.int32)
-    points_ok = tri_ok & (n_3d > cfg.min_num_3d_points)
+    with span("triangulate"):
+        eye3 = torch.eye(3, dtype=img_l.dtype, device=img_l.device)
+        zero3 = torch.zeros(3, dtype=img_l.dtype, device=img_l.device)
+        P1 = projection_matrix(rig.K_left, eye3, zero3)
+        P2 = projection_matrix(rig.K_right, rig.R_right, rig.t_right)
+        X = triangulate_points(P1, P2, state.prev_xy_l, state.prev_xy_r)
+        good_mask, _ = filter_3d_points(
+            X, tri_mask,
+            rig.K_left, eye3, zero3,
+            rig.K_right, rig.R_right, rig.t_right,
+            state.prev_xy_l, state.prev_xy_r,
+            cfg.reprojection_threshold,
+            min_points=cfg.min_num_3d_points,
+        )
+        n_3d = good_mask.sum(dtype=torch.int32)
+        points_ok = tri_ok & (n_3d > cfg.min_num_3d_points)
 
     # ---- PnP: prev-left-frame 3D points vs current-left pixels (:647-648).
     # A frame whose gates failed still goes through, with an all-false mask.
@@ -283,9 +285,10 @@ def _step_pairs(state, imgs_l, imgs_r, timestamps, rig, cfg, generator, sampler,
         step_sampler = None
         if sampler is not None:
             step_sampler = functools.partial(sampler, first + i, "pnp")
-        state, out = stereo_vo_step(
-            state, imgs_l[i], imgs_r[i], timestamps[i], rig, cfg, generator, step_sampler
-        )
+        with span("step", frame=first + i):
+            state, out = stereo_vo_step(
+                state, imgs_l[i], imgs_r[i], timestamps[i], rig, cfg, generator, step_sampler
+            )
         check_frame(out, first + i)
         outs.append(out)
     return state, StereoFrameOutput(*(torch.stack(field) for field in zip(*outs)))
@@ -336,20 +339,26 @@ def run_stereo_vo_streaming(
                              "(FrameBatch.imgs_right is None)")
         t0 = time.perf_counter()
         n = len(batch.imgs)
-        imgs_l = preprocess_frame(plan_l, upload(batch.imgs, device).float())
-        imgs_r = preprocess_frame(plan_r, upload(batch.imgs_right, device).float())
-        if frames is not None:
-            frames.append((imgs_l, imgs_r))
-        imgs_l, imgs_r, tss, state = _stereo_inputs(
-            "run_stereo_vo_streaming", imgs_l, imgs_r, upload(batch.timestamps, device),
-            rig, cfg, generator, state, device,
-        )
-        state, outs = _step_pairs(state, imgs_l, imgs_r, tss, rig, cfg, generator, sampler,
-                                  frames_done)
-        chunks.append(read_back(outs, device))
-        if timings is not None:
-            timings.append((n, time.perf_counter() - t0))
-        frames_done += n
-        if chunk_callback is not None:
-            chunk_callback(frames_done, state, chunks[-1], generator.get_state())
+        with span("chunk", frame=frames_done, frames=n):
+            with span("upload"):
+                raw_l = upload(batch.imgs, device).float()
+                raw_r = upload(batch.imgs_right, device).float()
+                tss = upload(batch.timestamps, device)
+            imgs_l = preprocess_frame(plan_l, raw_l)
+            imgs_r = preprocess_frame(plan_r, raw_r)
+            if frames is not None:
+                frames.append((imgs_l, imgs_r))
+            imgs_l, imgs_r, tss, state = _stereo_inputs(
+                "run_stereo_vo_streaming", imgs_l, imgs_r, tss, rig, cfg, generator, state,
+                device,
+            )
+            state, outs = _step_pairs(state, imgs_l, imgs_r, tss, rig, cfg, generator, sampler,
+                                      frames_done)
+            chunks.append(read_back(outs, device))
+            if timings is not None:
+                timings.append((n, time.perf_counter() - t0))
+            frames_done += n
+            if chunk_callback is not None:
+                with span("callback"):
+                    chunk_callback(frames_done, state, chunks[-1], generator.get_state())
     return state, concat_chunks(chunks)

@@ -6,12 +6,7 @@ from ergo_uvo_tpu_torch.utils.checkpoint import (  # noqa: F401
     save_state,
 )
 from ergo_uvo_tpu_torch.utils.debug import assert_finite, nan_guard  # noqa: F401
-from ergo_uvo_tpu_torch.utils.profiling import (  # noqa: F401
-    FrameRateCounter,
-    stage,
-    time_fn,
-    trace,
-)
+from ergo_uvo_tpu_torch.utils.profiling import recording, span  # noqa: F401
 from ergo_uvo_tpu_torch.utils.records import RunRecorder  # noqa: F401
 from ergo_uvo_tpu_torch.utils.visualize import (  # noqa: F401
     draw_matches,

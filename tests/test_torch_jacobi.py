@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from ergo_uvo_tpu_torch.geometry import linalg
+from ergo_uvo_tpu_torch.utils.profiling import COUNTERS
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -151,10 +152,10 @@ def test_cpu_route_is_the_plain_version_bit_for_bit(name):
     counted, the input left as it was."""
     A, _ = case(name)
     x = torch.from_numpy(A.copy())
-    before = linalg.LAUNCHES
+    before = COUNTERS["jacobi_eigh.launches"]
     w, v = linalg.jacobi_eigh(x)
     rw, rv = linalg.jacobi_eigh_reference(x)
-    assert linalg.LAUNCHES == before
+    assert COUNTERS["jacobi_eigh.launches"] == before
     assert torch.equal(w.view(torch.int32), rw.view(torch.int32))
     assert torch.equal(v.view(torch.int32), rv.view(torch.int32))
     assert torch.equal(x, torch.from_numpy(A))
@@ -169,19 +170,19 @@ def test_cpu_route_is_the_plain_version_bit_for_bit(name):
 def test_kernel_refuses_what_it_cannot_take(shape, dtype, error):
     """The wrapper's checks come before any build or launch: another dtype,
     another n or a non-square input raises, and nothing falls back."""
-    before = linalg.LAUNCHES
+    before = COUNTERS["jacobi_eigh.launches"]
     with pytest.raises(error, match="jacobi_eigh"):
         linalg._launch(torch.zeros(shape, dtype=dtype), 7)
-    assert linalg.LAUNCHES == before
+    assert COUNTERS["jacobi_eigh.launches"] == before
 
 
 def test_kernel_batch_of_zero_launches_nothing():
     """An empty batch returns empty outputs of the right shapes without a
     launch (nor a build)."""
-    before = linalg.LAUNCHES
+    before = COUNTERS["jacobi_eigh.launches"]
     w, v = linalg._launch(torch.zeros(0, 3, 9, 9), 7)
     assert w.shape == (0, 3, 9) and v.shape == (0, 3, 9, 9)
-    assert linalg.LAUNCHES == before
+    assert COUNTERS["jacobi_eigh.launches"] == before
 
 
 def edge_cases_for_the_card():
@@ -244,9 +245,9 @@ def test_jacobi_kernel_matches_plain_version_on_cuda():
     for name, A, sweeps in runs:
         x = torch.from_numpy(A).to(dev)
         keep = x.clone()
-        before = linalg.LAUNCHES
+        before = COUNTERS["jacobi_eigh.launches"]
         w, v = linalg.jacobi_eigh(x, sweeps)
-        assert linalg.LAUNCHES == before + 1, name
+        assert COUNTERS["jacobi_eigh.launches"] == before + 1, name
         rw, rv = linalg.jacobi_eigh_reference(x, sweeps)
         torch.cuda.synchronize()
         assert same_bits(w, rw) and same_bits(v, rv), (name, sweeps)
@@ -256,9 +257,10 @@ def test_jacobi_kernel_matches_plain_version_on_cuda():
         w, v = linalg.jacobi_eigh(view)
         rw, rv = linalg.jacobi_eigh_reference(view)
         assert same_bits(w, rw) and same_bits(v, rv)
-    before = linalg.LAUNCHES
+    before = COUNTERS["jacobi_eigh.launches"]
     w, v = linalg.jacobi_eigh(torch.zeros(0, 9, 9, device=dev))
-    assert w.shape == (0, 9) and v.shape == (0, 9, 9) and linalg.LAUNCHES == before
+    assert w.shape == (0, 9) and v.shape == (0, 9, 9)
+    assert COUNTERS["jacobi_eigh.launches"] == before
     with pytest.raises(ValueError, match="jacobi_eigh"):
         linalg.jacobi_eigh(torch.zeros(2, 4, 4, device=dev))
     with pytest.raises(TypeError, match="jacobi_eigh"):

@@ -23,6 +23,7 @@ from hypothesis import strategies as st
 
 from ergo_uvo_tpu_torch import cuda_build
 from ergo_uvo_tpu_torch.features import top2_matcher
+from ergo_uvo_tpu_torch.utils.profiling import COUNTERS
 
 # The main path's shape (512 keypoints, 64-d SURF) and those of
 # tests/test_features.py: odd Q, T and D, and T < 8.
@@ -41,10 +42,10 @@ def test_cpu_tensors_take_the_plain_version():
     dq, dt = unit_descs(37, 64, 1), unit_descs(91, 64, 2)
     mt = torch.ones(91, dtype=torch.bool)
     mt[::5] = False
-    before = top2_matcher.LAUNCHES
+    before = COUNTERS["top2_distances.launches"]
     got = top2_matcher.top2_distances(dq, dt, mt)
     ref = top2_matcher.top2_distances_reference(dq, dt, mt)
-    assert top2_matcher.LAUNCHES == before
+    assert COUNTERS["top2_distances.launches"] == before
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
 
@@ -234,9 +235,9 @@ def test_top2_kernel_matches_reference_on_cuda():
     dup[400] = dq[5]  # rank 6's slice
     cases.append((dq, dup, ones))
     for dq, dt, mt in cases:
-        before = top2_matcher.LAUNCHES
+        before = COUNTERS["top2_distances.launches"]
         k1, ki, k2 = top2_matcher.top2_distances(dq, dt, mt)
-        assert top2_matcher.LAUNCHES == before + 1
+        assert COUNTERS["top2_distances.launches"] == before + 1
         r1, ri, r2 = top2_matcher.top2_distances_reference(dq, dt, mt)
         torch.cuda.synchronize()
         shape = tuple(dq.shape) + tuple(dt.shape)

@@ -7,7 +7,7 @@
   stereo, chunks of 3 and 4), a crash after chunk 2 and a resume with
   another chunk size equal the uninterrupted run bit for bit, the generator
   state and the VO state survive their files, the nan guard, and the
-  profiling helpers.
+  program spans.
 
 Sizes: 160x128 frames, at most 9 of them, 128 keypoints, 64 hypotheses.
 """
@@ -44,7 +44,7 @@ from ergo_uvo_tpu_torch.pipeline import (
     run_stereo_vo_streaming,
     stereo_vo_init_from,
 )
-from ergo_uvo_tpu_torch.utils import FrameRateCounter, stage, time_fn, trace
+from ergo_uvo_tpu_torch.utils import recording, span
 from ergo_uvo_tpu_torch.utils.checkpoint import (
     append_stream_segment,
     load_stream_checkpoint,
@@ -351,18 +351,25 @@ def test_nan_guard_raises_at_the_first_non_finite_frame():
 
 
 @pytest.mark.fast
-def test_profiling_helpers(tmp_path):
-    """``trace`` writes a Chrome trace holding the ``stage`` range;
-    ``time_fn`` and ``FrameRateCounter`` give positive rates."""
-    with trace(str(tmp_path)):
-        with stage("vo_stage"):
-            torch.ones(8).sum()
-    (path,) = list(tmp_path.glob("trace_*.json"))
-    assert "vo_stage" in path.read_text()
-    assert time_fn(lambda: torch.ones(8).sum(), reps=3) > 0
-    counter = FrameRateCounter()
-    counter.tick()
-    assert counter.tick(4) > 0 and counter.total_frames == 5
+def test_profiling_helpers():
+    """``span`` records nothing off; under ``recording`` it times nested
+    spans (self time: what the children leave) and, under ``torch.profiler``,
+    opens a range of its name in the trace."""
+    with span("vo_stage"):
+        torch.ones(8).sum()
+    with recording() as rec:
+        with torch.profiler.profile() as prof:
+            with span("vo_stage", frame=7):
+                with span("inner"):
+                    torch.ones(8).sum()
+    (inner, outer), = rec.trees
+    assert (outer.name, outer.frame, inner.name, inner.frame) == ("vo_stage", 7, "inner", 7)
+    assert inner.parent == outer.id and outer.parent == -1
+    totals = rec.totals
+    assert totals["vo_stage"].calls == 1 and totals["inner"].calls == 1
+    assert totals["vo_stage"].self_ns == (outer.end_ns - outer.start_ns) - (
+        inner.end_ns - inner.start_ns) >= 0
+    assert {"vo_stage", "inner"} <= {e.key for e in prof.key_averages()}
 
 
 # ------------------------------------------------- copies against originals
