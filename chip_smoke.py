@@ -6,13 +6,14 @@
 Run from the root of a checkout.  It imports nothing of JAX or of
 ``ergo_uvo_tpu``; every check that fails raises, so any failure exits
 non-zero.  It writes only under ``build/chip_smoke/`` in the checkout.
-Thirty phases, one JSON line each (two detector phases and the
+Thirty-one phases, one JSON line each (two detector phases and the
 preprocessed slice print side lines):
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build: nvcc builds ``ergo_uvo_tpu_torch/csrc/top2_distances.cu`` and
-   ``ergo_uvo_tpu_torch/csrc/jacobi_eigh.cu`` from the checkout's sources
-   into ``build/``, one nvcc a source, both started together (seconds,
+2. build: nvcc builds ``ergo_uvo_tpu_torch/csrc/top2_distances.cu``,
+   ``ergo_uvo_tpu_torch/csrc/jacobi_eigh.cu`` and
+   ``ergo_uvo_tpu_torch/csrc/surf_hessian.cu`` from the checkout's sources
+   into ``build/``, one nvcc a source, all started together (seconds,
    ptxas register and spill report of each, and each kernel's SASS
    instruction count where the toolkit has ``cuobjdump``);
 3. kernel: the top-2 kernel against its plain PyTorch version on the card at
@@ -42,6 +43,15 @@ preprocessed slice print side lines):
    card's bound, and the kernel's cycles a rotation at the SM clock that
    ``nvidia-smi`` reads, polled from a thread, while the kernel keeps the card
    busy (the 512x12x12 batch 64 times over);
+4b. surf: the SURF fast-Hessian kernels (``detect_surf`` on the card)
+   against the plain chain (``detect_surf_reference`` on the card) on the
+   24 frames of the slice at the mono and stereo thresholds (50, 1500):
+   every field of the keypoints bit for bit, 5 launches a detection, no
+   host sync (``torch.cuda.set_sync_debug_mode("error")``); then
+   at 1 and 2 frames of 640x480 the time of both, per call between CUDA
+   events and as device time under torch.profiler, with the kernels' count
+   a call, every launch a call under the profiler and the least time the
+   card could take (52 fp32 operations a grid point at its peak);
 5. slice: ``run_mono_vo`` on 24 synthetic 640x480 frames under the main
    path's config (SURF, 512 keypoints, 512 hypotheses, LMEDS), counting both
    kernels' launches (the Jacobi kernel at least once a frame and twice an
@@ -156,8 +166,13 @@ preprocessed slice print side lines):
    over all streams held to the slice's bounds (each stream's RMSE
    reported), frames/s.
 
-Then the card's ``nvidia-smi`` line again, the kernel summary line (both
-kernels' launches on every path) and, last, ``{"ok": true, "device": ...}``.
+Every path runs with the port's spans recorded, so that its SURF detections
+(``detect.hessian`` spans) are counted beside the kernels' launches: each
+detection of a path launched the 5 SURF kernels, every SURF path detected,
+and the SIFT, ORB and AKAZE paths never ran SURF.  Then the card's
+``nvidia-smi`` line again, the kernel summary line (the three kernels'
+launches on every path, the SURF detections, and each kernel's timings and
+bound) and, last, ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -189,24 +204,41 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: check failed: {what}")
 
 
-# Each path's launches of the Jacobi kernel, by the path's phase name; the
-# top-2 kernel's come back from the phases themselves.
+# Each path's launches of the Jacobi kernel and of the SURF kernels, and its
+# SURF detections (``detect.hessian`` spans), by the path's phase name; the
+# top-2 kernel's launches come back from the phases themselves.
 JACOBI_BY_PATH: dict[str, int] = {}
+SURF_BY_PATH: dict[str, int] = {}
+DETECTIONS_BY_PATH: dict[str, int] = {}
+# The span recording that is on while a path is driven.
+_PATH_SPANS = contextlib.ExitStack()
+_path_recording = None
 
 
 def _zero_counts() -> None:
-    """Set every kernel's launch count to 0, just before a path is driven."""
-    from ergo_uvo_tpu_torch.utils.profiling import COUNTERS
+    """Set every kernel's launch count to 0 and start recording spans, just
+    before a path is driven."""
+    from ergo_uvo_tpu_torch.utils.profiling import COUNTERS, recording
 
+    global _path_recording
+    _PATH_SPANS.close()
     COUNTERS["top2_distances.launches"] = 0
     COUNTERS["jacobi_eigh.launches"] = 0
+    COUNTERS["surf_hessian.launches"] = 0
+    _path_recording = _PATH_SPANS.enter_context(recording())
 
 
 def _read_counts(path: str) -> int:
     """Read every count just after the path ran: the Jacobi kernel's goes to
-    ``JACOBI_BY_PATH[path]``, the top-2 kernel's is returned."""
+    ``JACOBI_BY_PATH[path]``, the SURF kernels' to ``SURF_BY_PATH[path]``,
+    the SURF detections to ``DETECTIONS_BY_PATH[path]``; the top-2 kernel's
+    is returned."""
     from ergo_uvo_tpu_torch.utils.profiling import COUNTERS
 
+    _PATH_SPANS.close()
+    hessian = _path_recording.totals.get("detect.hessian")
+    DETECTIONS_BY_PATH[path] = hessian.calls if hessian else 0
+    SURF_BY_PATH[path] = COUNTERS["surf_hessian.launches"]
     JACOBI_BY_PATH[path] = COUNTERS["jacobi_eigh.launches"]
     return COUNTERS["top2_distances.launches"]
 
@@ -232,7 +264,7 @@ def phase_build():
 
     from ergo_uvo_tpu_torch.cuda_build import BUILD_INFO, load_library
 
-    stems = ("top2_distances", "jacobi_eigh")
+    stems = ("top2_distances", "jacobi_eigh", "surf_hessian")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(stems)) as pool:
         list(pool.map(load_library, stems))
@@ -494,6 +526,8 @@ def phase_kernel(torch):
 
 
 JACOBI_SOURCE = "ergo_uvo_tpu_torch/csrc/jacobi_eigh.cu"
+SURF_SOURCE = "ergo_uvo_tpu_torch/csrc/surf_hessian.cu"
+SURF_REPLACES = "ergo_uvo_tpu_torch/features/detector.py::detect_surf_reference"
 JACOBI_REPLACES = "ergo_uvo_tpu/geometry/linalg.py:21"
 JACOBI_SWEEPS = 7
 # (name, n) of the timed inputs: a refit, the 8-point solve of 512
@@ -680,6 +714,95 @@ def phase_jacobi(torch):
           f"jacobi: kernel device time {main['device_ms']} ms is not below the plain version's "
           f"{main['plain_device_ms']} ms at {JACOBI_MAIN}")
     return max_err, timings
+
+
+SURF_THRESHOLDS = (50.0, 1500.0)  # the mono and stereo configurations' min_hessian
+SURF_BATCHES = (1, 2)  # frames of 640x480 a timed call
+SURF_LAUNCHES = 5  # kernel launches a detection: two scans, responses, peaks, refine + merge
+# fp32 operations a grid point (octave x layer x y x x): 10 boxes of 4 (three
+# corner sums, the weight), 7 sums of boxes, det (4) and trace (1).
+SURF_OPS_PER_POINT = 52
+
+
+def _surf_bound(shape, k):
+    """The least time the card could take for one detection of
+    ``SurfShape`` ``shape``: every grid point's box responses at
+    ``SURF_OPS_PER_POINT``, and the frames read once and the K keypoints'
+    fields (xy, scale, score, laplacian: 20 bytes; mask: 1) written once."""
+    ops_ms = 1e3 * SURF_OPS_PER_POINT * shape.points() / PEAK_FP32_FLOPS
+    bytes_ms = 1e3 * (4.0 * shape.batch * shape.h * shape.w + 21.0 * shape.batch * k) / PEAK_BYTES_PER_S
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_operations_ms": ops_ms, "bound_bytes_ms": bytes_ms}
+
+
+def phase_surf(torch, seq):
+    """The SURF fast-Hessian kernels against the plain chain on the card,
+    then timed; returns the timings by batch."""
+    from ergo_uvo_tpu_torch.features import detector
+    from ergo_uvo_tpu_torch.features.surf_hessian import SurfShape
+    from ergo_uvo_tpu_torch.utils.profiling import COUNTERS
+
+    dev = torch.device("cuda")
+    frames = torch.from_numpy(seq.imgs_left).to(dev)
+    n_octaves, n_layers, k = 4, 3, 512
+    checks = []
+    for min_hessian in SURF_THRESHOLDS:
+        for i in range(frames.shape[0]):
+            x = frames[i:i + 1]
+            before = COUNTERS["surf_hessian.launches"]
+            got = detector.detect_surf(x, k, min_hessian, n_octaves, n_layers)
+            launched = COUNTERS["surf_hessian.launches"] - before
+            ref = detector.Keypoints(*detector.detect_surf_reference(x, k, min_hessian, n_octaves,
+                                                                     n_layers))
+            compared = {f: _bit_compare(torch, getattr(got, f), getattr(ref, f))
+                        for f in ("xy", "scale", "score", "laplacian")}
+            checks.append({"frame": i, "min_hessian": min_hessian, "launches": launched,
+                           "count": int(got.count.sum()),
+                           "bits": bool(torch.equal(got.mask, ref.mask))
+                           and all(c[0] for c in compared.values()),
+                           "max_abs_err": max(c[2] for c in compared.values())})
+    n, h, w = frames.shape
+    line = {"phase": "surf", "frames": n, "height": h, "width": w, "thresholds": list(SURF_THRESHOLDS),
+            "bit_equal": all(c["bits"] for c in checks),
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "counts": [c["count"] for c in checks]}
+    torch.cuda.set_sync_debug_mode("error")  # a host sync inside the detection raises
+    try:
+        detector.detect_surf(frames[:2], k, SURF_THRESHOLDS[0], n_octaves, n_layers)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    timings = {}
+    for batch in SURF_BATCHES:
+        x = frames[:batch].contiguous()
+        kernel = lambda: detector.detect_surf(x, k, SURF_THRESHOLDS[0], n_octaves, n_layers)  # noqa: E731
+        plain = lambda: detector.detect_surf_reference(  # noqa: E731
+            x, k, SURF_THRESHOLDS[0], n_octaves, n_layers)
+        before = COUNTERS["surf_hessian.launches"]
+        kernel()
+        kernels_a_call = COUNTERS["surf_hessian.launches"] - before
+        _, _, launches, _, by_kernel = _profile_launches(torch, kernel, runs=5)
+        plain_ms = _time_ms(torch, plain, warmup=2, runs=10)  # ~2,700 launches a call
+        _, _, plain_launches, _, _ = _profile_launches(torch, plain, runs=2)
+        shape = SurfShape(batch, h, w, n_octaves, n_layers + 2, detector.surf_margin(n_octaves, n_layers))
+        row = {"shape": f"{batch}x{h}x{w}", "kernels_a_call": kernels_a_call,
+               "ms": _time_ms(torch, kernel), "device_ms": _device_ms(torch, kernel),
+               "launches_per_call": launches, "device_ms_by_kernel": by_kernel,
+               "plain_ms": plain_ms, "plain_device_ms": _device_ms(torch, plain, runs=2),
+               "plain_launches_per_call": plain_launches, **_surf_bound(shape, k)}
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        timings[f"batch_{batch}"] = row
+    line["timings"] = timings
+    emit(line)
+    for c in checks:
+        check(c["launches"] == SURF_LAUNCHES,
+              f"surf: frame {c['frame']}: {c['launches']} kernel launches, not {SURF_LAUNCHES}")
+        check(c["bits"], f"surf: frame {c['frame']} at {c['min_hessian']}: the keypoints differ "
+                         f"from the plain chain's (largest difference {c['max_abs_err']})")
+    for name, t in timings.items():
+        check(t["kernels_a_call"] == SURF_LAUNCHES, f"surf: {t['kernels_a_call']} kernel launches a call")
+        check(t["device_ms"] < t["plain_device_ms"] and t["ms"] < t["plain_ms"],
+              f"surf: the kernels are not faster than the plain chain at {name}")
+    return timings
 
 
 def _main_path_config():
@@ -1831,26 +1954,33 @@ def _ba_scene(np, P=BA_POSES, L=BA_LANDMARKS):
     return K, obs, Rs, ts, X0, X
 
 
-def _profile_launches(torch, fn):
-    """(wall ms, device ms, kernel launches, host-sync calls) of one ``fn()``
-    under torch.profiler, the card drained before and after; launches through
-    cudaLaunchKernel and cuLaunchKernel (cuSOLVER's) both count, and so does every
-    synchronizing call the trace shows (a library's own, which
-    ``set_sync_debug_mode`` does not see, included)."""
+def _profile_launches(torch, fn, runs=1):
+    """(wall ms, device ms, kernel launches, host-sync calls, {kernel: device
+    ms}) of ``fn()`` under torch.profiler, ``runs`` calls in a row, the card
+    drained before and after; times, launches and the device ms of the 12
+    longest kernels are a call's, the host-sync calls those of all runs.
+    Launches through cudaLaunchKernel and cuLaunchKernel (cuSOLVER's) both
+    count, and so does every synchronizing call the trace shows (a library's
+    own, which ``set_sync_debug_mode`` does not see, included)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        for _ in range(runs):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
+        wall_ms = 1e3 * (time.perf_counter() - t0) / runs
     events = prof.key_averages()
-    device_ms = 1e-3 * sum(e.self_device_time_total for e in events
-                           if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    device_ms = 1e-3 * sum(e.self_device_time_total for e in on_device) / runs
+    by_kernel: dict[str, float] = {}
+    for e in on_device:  # names cut to 80 characters; kernels that share a cut name add up
+        by_kernel[e.key[:80]] = by_kernel.get(e.key[:80], 0.0) + 1e-3 * e.self_device_time_total / runs
+    by_kernel = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
     launches = sum(e.count for e in events if e.key in (
-        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"))
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")) / runs
     # Host calls that may wait (the harness's own synchronize is one), and
     # the copies the device ran, by direction.
     syncs = {e.key: e.count for e in events
@@ -1858,7 +1988,7 @@ def _profile_launches(torch, fn):
                                   "cudaEventSynchronize", "cuMemcpy", "cuStreamSynchronize",
                                   "Memcpy"))}
     check(device_ms > 0, "torch.profiler recorded no device time")
-    return wall_ms, device_ms, launches, syncs
+    return wall_ms, device_ms, launches, syncs, by_kernel
 
 
 def phase_ba(torch):
@@ -1897,7 +2027,7 @@ def phase_ba(torch):
     t_lo = min(seconds(BA_ITERS) for _ in range(2))
     t_hi = min(seconds(BA_ITERS_HI) for _ in range(2))
     iters_per_s = (BA_ITERS_HI - BA_ITERS) / (t_hi - t_lo)
-    wall_ms, device_ms, launches, syncs = _profile_launches(
+    wall_ms, device_ms, launches, syncs, _ = _profile_launches(
         torch, lambda: ba_solve(prob, R0, t0, Xd, iters=BA_ITERS))
 
     r, _, _ = reprojection_residuals(prob.K, R0, t0, Xd, prob.obs_uv, prob.obs_mask)
@@ -2155,7 +2285,7 @@ def phase_dist_ba(torch):
 
         t_lo = min(seconds(BA_ITERS) for _ in range(2))
         t_hi = min(seconds(BA_ITERS_HI) for _ in range(2))
-        wall_ms, device_ms, n_launch, syncs = _profile_launches(torch, lambda: solve(BA_ITERS))
+        wall_ms, device_ms, n_launch, syncs, _ = _profile_launches(torch, lambda: solve(BA_ITERS))
         line[name] = {
             "costs_first_last": [float(costs[0]), float(costs[-1])],
             "costs_max_rel_diff": float(((costs - ref_costs).abs() / ref_costs).max()),
@@ -2274,6 +2404,7 @@ def main() -> int:
     main_shape = timings[MAIN_SHAPE]
     jacobi_err, jacobi_timings = phase_jacobi(torch)
     seq = _mono_sequence()
+    surf_timings = phase_surf(torch, seq)
     launches, slice_outs = phase_slice(torch, seq)
     phase_mono_stages(torch, seq)
     plan, frames = phase_preprocess(torch, seq)
@@ -2320,7 +2451,22 @@ def main() -> int:
     jacobi_paths = {k: JACOBI_BY_PATH[k] for k in paths}
     check(all(n > 0 for k, n in jacobi_paths.items() if k not in ("ba", "trajectory_ba", "dist_ba")),
           f"a path launched the Jacobi kernel no time: {jacobi_paths}")
+    # Every SURF detection of every path ran the SURF kernels, 5 launches
+    # each (a stereo pair's two eyes are one detection of two frames or two
+    # of one); the main paths detect, the other detectors' paths never.
+    surf_paths = {k: SURF_BY_PATH[k] for k in paths}
+    detections = {k: DETECTIONS_BY_PATH[k] for k in paths}
+    check(all(surf_paths[k] == SURF_LAUNCHES * detections[k] for k in paths),
+          f"a path's SURF detections did not each launch the {SURF_LAUNCHES} SURF kernels: "
+          f"launches {surf_paths}, detections {detections}")
+    other_detector = [k for k in paths if any(d in k for d in ("sift", "orb", "akaze"))]
+    check(all(detections[k] == 0 for k in other_detector),
+          f"a SIFT, ORB or AKAZE path ran SURF: {detections}")
+    surf_main = [k for k in paths if k not in other_detector
+                 and k not in ("ba", "trajectory_ba", "loop_closure", "dist_ba")]
+    check(all(detections[k] > 0 for k in surf_main), f"a SURF path detected nothing: {detections}")
     jacobi_main = jacobi_timings[JACOBI_MAIN]
+    surf_one = surf_timings["batch_1"]
     print(smi, flush=True)  # the card again, beside the summary at the end of the output
     emit({"kernels": [{"name": "top2_distances", "route": "cuda", "source": KERNEL_SOURCE,
                        "replaces": KERNEL_REPLACES, "launches": launches,
@@ -2350,7 +2496,21 @@ def main() -> int:
                        "by_shape": {name: {k: row[k] for k in (
                            "ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
                            "library_device_ms", "bound_ms", "bound_by", "cycles_per_rotation")}
-                           for name, row in jacobi_timings.items()}}]})
+                           for name, row in jacobi_timings.items()}},
+                      {"name": "surf_hessian", "route": "cuda", "source": SURF_SOURCE,
+                       "replaces": SURF_REPLACES, "launches": SURF_BY_PATH["slice"],
+                       "launches_per_frame": SURF_BY_PATH["slice"] / N_FRAMES,
+                       "launches_by_path": surf_paths,
+                       "launches_per_frame_by_path": {k: n / frames_by_path[k]
+                                                      for k, n in surf_paths.items()},
+                       "detections_by_path": detections,
+                       **{k: surf_one[k] for k in (
+                           "shape", "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
+                           "bound_by")},
+                       "by_shape": {name: {k: row[k] for k in (
+                           "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms", "bound_by",
+                           "bound_share")}
+                           for name, row in surf_timings.items()}}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -16,6 +16,12 @@ the detector: the box sums and the NMS are elementwise or pooled per frame,
 the top-K is a sort along the last axis, and the refinement gathers with a
 frame index.  Nothing is looped over frames, and a batch gives each frame
 the bits it gets alone.
+
+:func:`detect_surf` dispatches on the frames' device, as
+``geometry/linalg.py::jacobi_eigh`` does: CUDA frames go through the kernels
+of :mod:`ergo_uvo_tpu_torch.features.surf_hessian` (5 launches a call), CPU
+frames through :func:`detect_surf_reference`, the plain version, which the
+CPU tests hold to the JAX package and the card tests hold the kernels to.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ergo_uvo_tpu_torch.features import surf_hessian
 from ergo_uvo_tpu_torch.features.integral import integral_image, pad_integral
 from ergo_uvo_tpu_torch.geometry.triangulation import _solve33
 from ergo_uvo_tpu_torch.utils.profiling import span
@@ -117,12 +124,10 @@ def hessian_octave(iip, margin: int, h: int, w: int, octave: int, sizes_o):
     return torch.stack(dets, dim=-3), torch.stack(traces, dim=-3)
 
 
-def _octave_candidates(
-    dets, traces, octave: int, sizes_o, h: int, w: int,
-    max_keypoints: int, min_hessian: float,
-):
-    """Top-K refined candidates of one octave of B frames, from (B, n_l, h_o,
-    w_o) stacks: (score (B, K), xy (B, K, 2), sigma, laplacian, mask)."""
+def octave_scores(dets, octave: int, sizes_o, h: int, w: int, min_hessian: float):
+    """(B, n_l * h_o * w_o) flat scores of one octave's (B, n_l, h_o, w_o)
+    det stack, in (layer, y, x) order: the det at a valid 3x3x3 peak above
+    ``min_hessian``, else -inf."""
     n_b, n_l, h_o, w_o = dets.shape
     step = 1 << octave
     n_middle = n_l - 2
@@ -149,9 +154,21 @@ def _octave_candidates(
             lv = torch.zeros((h_o, w_o), dtype=torch.bool, device=device)
         valid_layers.append(lv)
     candidates = is_peak & torch.stack(valid_layers)
+    return torch.where(candidates, dets, float("-inf")).reshape(n_b, -1)
+
+
+def _octave_candidates(
+    dets, traces, octave: int, sizes_o, h: int, w: int,
+    max_keypoints: int, min_hessian: float,
+):
+    """Top-K refined candidates of one octave of B frames, from (B, n_l, h_o,
+    w_o) stacks: (score (B, K), xy (B, K, 2), sigma, laplacian, mask)."""
+    n_b, n_l, h_o, w_o = dets.shape
+    step = 1 << octave
+    device = dets.device
 
     # ---- top-K within the octave.
-    flat_scores = torch.where(candidates, dets, float("-inf")).reshape(n_b, -1)
+    flat_scores = octave_scores(dets, octave, sizes_o, h, w, min_hessian)
     k = min(max_keypoints, flat_scores.shape[-1])
     scores, idx = top_k(flat_scores, k)
     if k < max_keypoints:
@@ -209,6 +226,60 @@ def _octave_candidates(
     return scores, xy, sigma, lap, mask
 
 
+def surf_margin(n_octaves: int, n_layers: int) -> int:
+    """The padded table's margin: box corners lie within [-size//2, size -
+    size//2] of the pixel, for the largest size; +2 slack."""
+    return filter_sizes(n_octaves, n_layers)[-1][-1] // 2 + 2
+
+
+def detect_surf_reference(
+    img: torch.Tensor,
+    max_keypoints: int = 512,
+    min_hessian: float = 50.0,
+    n_octaves: int = 4,
+    n_layers: int = 3,
+):
+    """The plain version of :func:`detect_surf` on (B, H, W) frames: the
+    fields of ``Keypoints``, each leading with B."""
+    _, h, w = img.shape
+    sizes = filter_sizes(n_octaves, n_layers)
+    margin = surf_margin(n_octaves, n_layers)
+    iip = pad_integral(integral_image(img), margin)
+
+    per_octave = []
+    for octave in range(n_octaves):
+        dets, traces = hessian_octave(iip, margin, h, w, octave, sizes[octave])
+        per_octave.append(
+            _octave_candidates(
+                dets, traces, octave, sizes[octave], h, w,
+                max_keypoints, min_hessian,
+            )
+        )
+
+    # ---- global top-K merge across octaves.
+    scores = torch.cat([p[0] for p in per_octave], dim=-1)
+    xy = torch.cat([p[1] for p in per_octave], dim=-2)
+    sigma = torch.cat([p[2] for p in per_octave], dim=-1)
+    lap = torch.cat([p[3] for p in per_octave], dim=-1)
+    mask = torch.cat([p[4] for p in per_octave], dim=-1)
+
+    merged = torch.where(mask, scores, float("-inf"))
+    top_scores, top_idx = top_k(merged, max_keypoints)
+    top_mask = torch.isfinite(top_scores)
+    frame = torch.arange(img.shape[0], device=img.device)[:, None]
+    xy = xy[frame, top_idx]
+    sigma = sigma[frame, top_idx]
+    lap = lap[frame, top_idx]
+    zero = torch.zeros_like(sigma)
+    return (
+        torch.where(top_mask[..., None], xy, 0.0),
+        torch.where(top_mask, sigma, zero),
+        torch.where(top_mask, top_scores, zero),
+        torch.where(top_mask, lap, zero),
+        top_mask,
+    )
+
+
 def detect_surf(
     img: torch.Tensor,
     max_keypoints: int = 512,
@@ -219,47 +290,17 @@ def detect_surf(
     """Up to ``max_keypoints`` SURF keypoints of each (..., H, W) float32 image.
 
     Slots beyond the number of detections have mask=False and zero fields.
-    Leading dimensions are frames and lead every field of the result.
+    Leading dimensions are frames and lead every field of the result.  See
+    the module doc for the dispatch.
     """
     with span("detect.hessian"):
         *batch, h, w = img.shape
-        img = img.reshape(-1, h, w)
-        sizes = filter_sizes(n_octaves, n_layers)
-        max_size = sizes[-1][-1]
-        # Pattern corner offsets are in [-size//2, size - size//2]; +2 slack.
-        margin = max_size // 2 + 2
-        iip = pad_integral(integral_image(img), margin)
-
-        per_octave = []
-        for octave in range(n_octaves):
-            dets, traces = hessian_octave(iip, margin, h, w, octave, sizes[octave])
-            per_octave.append(
-                _octave_candidates(
-                    dets, traces, octave, sizes[octave], h, w,
-                    max_keypoints, min_hessian,
-                )
-            )
-
-        # ---- global top-K merge across octaves.
-        scores = torch.cat([p[0] for p in per_octave], dim=-1)
-        xy = torch.cat([p[1] for p in per_octave], dim=-2)
-        sigma = torch.cat([p[2] for p in per_octave], dim=-1)
-        lap = torch.cat([p[3] for p in per_octave], dim=-1)
-        mask = torch.cat([p[4] for p in per_octave], dim=-1)
-
-        merged = torch.where(mask, scores, float("-inf"))
-        top_scores, top_idx = top_k(merged, max_keypoints)
-        top_mask = torch.isfinite(top_scores)
-        frame = torch.arange(img.shape[0], device=img.device)[:, None]
-        xy = xy[frame, top_idx]
-        sigma = sigma[frame, top_idx]
-        lap = lap[frame, top_idx]
-        zero = torch.zeros_like(sigma)
-        kpts = Keypoints(
-            xy=torch.where(top_mask[..., None], xy, 0.0),
-            scale=torch.where(top_mask, sigma, zero),
-            score=torch.where(top_mask, top_scores, zero),
-            laplacian=torch.where(top_mask, lap, zero),
-            mask=top_mask,
-        )
-        return Keypoints(*(f.reshape(*batch, *f.shape[1:]) for f in kpts))
+        frames = img.reshape(-1, h, w)
+        if frames.is_cuda:
+            fields = surf_hessian.detect(frames, max_keypoints, min_hessian, n_octaves, n_layers,
+                                         surf_margin(n_octaves, n_layers))
+        elif frames.device.type == "cpu":
+            fields = detect_surf_reference(frames, max_keypoints, min_hessian, n_octaves, n_layers)
+        else:
+            raise ValueError(f"detect_surf: no implementation for device {frames.device}")
+        return Keypoints(*(f.reshape(*batch, *f.shape[1:]) for f in fields))

@@ -25,8 +25,9 @@ its name, so the span lies in the profiler's trace beside the operations it
 issued, on the trace's own clock.
 
 Counters (:data:`COUNTERS`, :func:`count`) are always on: one added where a
-layer already holds the event on the host.  ``top2_distances.launches``
-and ``jacobi_eigh.launches`` count the two CUDA kernels' launches;
+layer already holds the event on the host.  ``top2_distances.launches``,
+``jacobi_eigh.launches`` and ``surf_hessian.launches`` count the CUDA
+kernels' launches (the last 5 a SURF detection on the card);
 ``relative_pose.second_attempts`` the frames whose preferred estimator failed
 its gate, so that the other one ran too.
 """
