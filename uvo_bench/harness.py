@@ -1,14 +1,15 @@
 """One run of one cell: set-up, the measured window, the traced stretch, the check.
 
 A run drives the port's own served path, the streaming runner of the cell's
-pipeline with ``chunk_size=1``, as a live node does: one frame in, one
-upload, one ``preprocess_frame``, one step, one read-back.  The frames come
-from :class:`ClosedLoop`, which hands in the next frame only after the
-runner's ``chunk_callback`` has delivered the previous frame's output to the
-host: a closed loop with one stream.  A frame's latency runs from its
-hand-in to that callback.  The loop stops handing in frames when the window's
-time is up; where the window outlasts a pass of the stream, a new pass starts
-from a fresh state.
+pipeline with the traffic's ``chunk_size`` (1 where the mix sets none): a
+chunk of frames in, one upload, one ``preprocess_frame``, a step a frame,
+one read-back; at 1, as a live node does.  The chunks come from
+:class:`ClosedLoop`, which hands in the next chunk only after the runner's
+``chunk_callback`` has delivered the previous chunk's outputs to the host: a
+closed loop with one stream.  A frame's latency runs from its chunk's
+hand-in to that callback.  The loop stops handing in chunks when the
+window's time is up; where the window outlasts a pass of the stream, a new
+pass starts from a fresh state.
 
 With ``trace`` on, the window runs with every per-layer metric's spans timed,
 then a stretch of consecutive frames (the mix's ``profiled_frames``) runs
@@ -41,7 +42,7 @@ def _stream_window(runner, stream, generator, log, deadline):
     while time.perf_counter() < deadline:
         source = ClosedLoop(stream, pass_id, 0, generator, log, runner.frame_batch, deadline)
         state = runner.run(source, generator, source.callback)
-        if source.next < len(stream.left):
+        if not source.exhausted:
             break
         pass_id += 1
     return state, pass_id, source.next

@@ -6,7 +6,8 @@ carried state where the reference cannot rebuild it from the frames: the
 relative pose, translation and scale factor that the previous frame left
 (the outputs ``R``, ``t``, ``scale_factor`` of frame i - 1), whether the
 stream was initialized (from the program's feature counts), and the
-generator's position before the frame.  The previous frame's features are
+generator's position before the frame's chunk, which the reference carries
+through the chunk.  The previous frame's features are
 the reference's own, from the raw frame.  The start, frames 0 and 1 of the
 first pass, runs on the reference's own state from a fresh one.
 """
@@ -37,6 +38,7 @@ class Runner:
 
     def __init__(self, config: dict, traffic: dict, stream, device: torch.device):
         self.config, self.traffic, self.stream, self.device = config, traffic, stream, device
+        self.chunk_size = traffic["chunk_size"]
         self.cfg = build_config(MonoVOConfig, config)
         pre = self.cfg.preprocessing
         h, w = stream.left.shape[1:]
@@ -46,14 +48,17 @@ class Runner:
 
     def run(self, source, generator, callback, state=None):
         state, _ = run_mono_vo_streaming(source, self.plan, self.plan.new_K, self.cfg, generator,
-                                         chunk_size=1, state=state, chunk_callback=callback,
+                                         chunk_size=self.chunk_size, state=state,
+                                         chunk_callback=callback,
                                          device=self.device)
         return state
 
     def warm(self, generator, frames=None):
         """Run the cell's shapes once: frame 0, then 8 (the essential matrix
-        and, on the plane, the homography after its gate), then neighbours."""
-        source = FrameList(self.stream, WARM_FRAMES[:frames], FrameBatch)
+        and, on the plane, the homography after its gate), then neighbours,
+        to a whole chunk."""
+        source = FrameList(self.stream, common.warm_indices(WARM_FRAMES, self.chunk_size, frames),
+                           FrameBatch)
         self.run(source, generator, source.callback)
         return source.seconds
 
@@ -75,9 +80,8 @@ class Runner:
             initialized=torch.ones((), dtype=torch.bool, device=self.device),
         )
 
-    def _ref_step(self, state, rec):
+    def _ref_step(self, state, rec, gen):
         i, s, ref = rec["index"], self.stream, self.ref
-        gen = ref.generator(rec["gen_state"])
         return ref_mono.mono_vo_step(state, ref.frame(i), ref.put(s.timestamps[i]),
                                      ref.put(s.ranges[i]), ref.K, ref.cfg, gen)
 
@@ -97,6 +101,7 @@ class Runner:
             window, seed, control, self.config, self.traffic, COUNTS,
             step=self._ref_step, fresh=fresh,
             rebuild=lambda rec: self._ref_state(by_key, rec, initialized(rec)),
+            generator=self.ref.generator,
             stratum=lambda rec: essential(rec["out"], self.config),
         )
 

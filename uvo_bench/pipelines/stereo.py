@@ -6,7 +6,8 @@ As in mono, the check takes from the program only what the reference cannot
 rebuild from the frames: the translation and rotation that the previous
 pair left (outputs ``t``, ``R`` of pair i - 1), whether the stream was
 initialized (from the program's counts of the earlier pairs), and the
-generator's position before the pair.  The previous pair's stereo-matched
+generator's position before the pair's chunk, which the reference carries
+through the chunk.  The previous pair's stereo-matched
 set is the reference's own; the start, pairs 0 and 1 of the first pass,
 runs on the reference's own state from a fresh one.
 """
@@ -47,6 +48,7 @@ class Runner:
 
     def __init__(self, config: dict, traffic: dict, stream, device: torch.device):
         self.config, self.traffic, self.stream, self.device = config, traffic, stream, device
+        self.chunk_size = traffic["chunk_size"]
         self.cfg = build_config(StereoVOConfig, config)
         pre = self.cfg.preprocessing
         h, w = stream.left.shape[1:]
@@ -61,12 +63,14 @@ class Runner:
 
     def run(self, source, generator, callback, state=None):
         state, _ = run_stereo_vo_streaming(source, self.plans[0], self.plans[1], self.rig,
-                                           self.cfg, generator, chunk_size=1, state=state,
-                                           chunk_callback=callback, device=self.device)
+                                           self.cfg, generator, chunk_size=self.chunk_size,
+                                           state=state, chunk_callback=callback,
+                                           device=self.device)
         return state
 
     def warm(self, generator, frames=None):
-        source = FrameList(self.stream, WARM_FRAMES[:frames], FrameBatch)
+        source = FrameList(self.stream, common.warm_indices(WARM_FRAMES, self.chunk_size, frames),
+                           FrameBatch)
         self.run(source, generator, source.callback)
         return source.seconds
 
@@ -102,11 +106,11 @@ class Runner:
             initialized=torch.ones((), dtype=torch.bool, device=self.device),
         )
 
-    def _ref_step(self, state, rec):
+    def _ref_step(self, state, rec, gen):
         i, ref = rec["index"], self.ref
         return ref_stereo.stereo_vo_step(state, ref.frame(i), ref.frame(i, right=True),
                                          ref.put(self.stream.timestamps[i]), self.ref_rig,
-                                         ref.cfg, ref.generator(rec["gen_state"]))
+                                         ref.cfg, gen)
 
     def check(self, window, seed, control):
         by_key = {(r["pass"], r["index"]): r for r in window}
@@ -117,4 +121,5 @@ class Runner:
 
         return common.check(window, seed, control, self.config, self.traffic, COUNTS,
                             step=self._ref_step, fresh=fresh,
-                            rebuild=lambda rec: self._ref_state(by_key, rec))
+                            rebuild=lambda rec: self._ref_state(by_key, rec),
+                            generator=self.ref.generator)

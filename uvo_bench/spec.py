@@ -48,7 +48,9 @@ def load_cell(name: str, bench: dict | None = None) -> Cell:
     workload = found[0]
     config_entry = next(c for c in bench["configs"] if c["name"] == workload["config"])
     config = load_json(ROOT / config_entry["file"])
-    traffic = load_json(BENCH_DIR / "traffic" / f"{workload['traffic']}.json")
+    # A mix that sets no ``chunk_size`` hands in one frame at a time.
+    traffic = {"chunk_size": 1,
+               **load_json(BENCH_DIR / "traffic" / f"{workload['traffic']}.json")}
     end_to_end = [m for m in bench["end_to_end"] if _reports(m, name)]
     reported = {m["name"] for m in end_to_end}
     per_layer = [m for m in bench["per_layer"]

@@ -1,9 +1,10 @@
 """Whole runs of the harness.
 
 On the CPU at a small frame (the harness's look for a card skipped): a cell
-assembled from data files alone runs and is correct; with the timed path
-broken underneath (an answer or a flag altered where it is produced, a
-step that returns its state unchanged) ``correct`` comes out false.
+assembled from data files alone runs and is correct, chunked streams too;
+with the timed path broken underneath (an answer or a flag altered where it
+is produced, in the middle of a chunk too, a step that returns its state
+unchanged) ``correct`` comes out false.
 Without a card ``run.py`` prints no result and fails.  On the card
 (``cuda``): the control, the plain reference in TF32 in the program's place,
 comes out not correct in every cell.
@@ -23,6 +24,9 @@ SEED = 2**31 + 21
 SMALL = {"config": {"camera": {"width": 160, "height": 120},
                     "preprocessing": {"desired_width": 160}, "reference_frames": 3},
          "traffic": {"frames_per_pass": 8, "texture_size": 256}}
+# A chunked mix at the CPU's pace: chunks of 4, one of them checked.
+CHUNKED = {"config": {**SMALL["config"], "reference_frames": 4},
+           "traffic": {**SMALL["traffic"], "chunk_size": 4}}
 
 
 @pytest.fixture(autouse=True)
@@ -44,8 +48,9 @@ def _data_only_cell(config, traffic, name="test_cell"):
     bench = json.loads((spec.ROOT / "BENCHMARK.json").read_text())
     bench["workloads"] = bench["workloads"] + [
         {"name": name, "config": config, "traffic": traffic, "chips": 1, "why": "test"}]
-    for m in bench["per_layer"]:
-        m["workloads"] = m["workloads"] + [name]
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "workloads" in m:
+            m["workloads"] = m["workloads"] + [name]
     return spec.load_cell(name, bench)
 
 
@@ -54,10 +59,14 @@ def _run(cell, device="cpu", overrides=SMALL, seconds=2.5, **kw):
                             overrides=overrides, log_fn=lambda *a, **k: None, **kw)
 
 
-@pytest.mark.parametrize("config,traffic", [("mono_surf_vga", "steady_20hz"),
-                                            ("stereo_surf_vga", "steady_20hz")])
-def test_a_cell_made_of_data_files_runs_and_is_correct(config, traffic):
-    result = _run(_data_only_cell(config, traffic))
+DATA_ONLY = [("mono_surf_vga", "steady_20hz", SMALL), ("stereo_surf_vga", "steady_20hz", SMALL),
+             ("mono_surf_vga", "offline_dive", CHUNKED)]
+
+
+@pytest.mark.parametrize("config,traffic,overrides",
+                         [pytest.param(c, t, o, id=f"{c}-{t}") for c, t, o in DATA_ONLY])
+def test_a_cell_made_of_data_files_runs_and_is_correct(config, traffic, overrides):
+    result = _run(_data_only_cell(config, traffic), overrides=overrides)
     assert result["correct"], result["compared"]
     assert result["attempted"] >= 3 and result["failed"] == 0
     assert set(result["metrics"]) == {"frames_per_s", "frame_ms_p95", "setup_s"}
@@ -76,6 +85,25 @@ def test_an_answer_altered_where_it_is_produced_is_not_correct(kind, step, monke
 
     monkeypatch.setattr(module, step, altered)
     result = _run(_data_only_cell(f"{kind}_surf_vga", "survey_20hz"))
+    assert not result["correct"]
+    assert result["compared"]["velocity_gap"]["value"] > result["compared"]["velocity_gap"]["limit"]
+
+
+def test_an_answer_altered_in_the_middle_of_a_chunk_is_not_correct(monkeypatch):
+    """Frame 2 of every chunk of 4 (never a chunk's first, whose generator
+    state the window records): the check replays whole chunks and sees it."""
+    from ergo_uvo_tpu_torch.pipeline import mono
+
+    real = mono.mono_vo_step
+    dt = spec.load_json(spec.BENCH_DIR / "traffic" / "offline_dive.json")["dt"]
+
+    def altered(state, img, timestamp, *args, **kwargs):
+        state, out = real(state, img, timestamp, *args, **kwargs)
+        middle = round(float(timestamp) / dt) % 4 == 2
+        return state, out._replace(velocity=out.velocity * 1.5) if middle else out
+
+    monkeypatch.setattr(mono, "mono_vo_step", altered)
+    result = _run(_data_only_cell("mono_surf_vga", "offline_dive"), overrides=CHUNKED)
     assert not result["correct"]
     assert result["compared"]["velocity_gap"]["value"] > result["compared"]["velocity_gap"]["limit"]
 
