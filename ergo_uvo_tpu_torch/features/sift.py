@@ -17,6 +17,13 @@ translation:
 * the patch samplers are gathers (:mod:`features.sampling`).
 
 Every function takes leading frame dimensions; nothing is looped over frames.
+
+Spans (:mod:`utils.profiling`), under the frontend's ``detect``:
+``detect.sift.scale_space`` (the pyramid), ``detect.sift.extrema`` and
+``detect.sift.describe`` (one each an octave), ``detect.sift.select`` (the
+merged top-K and its gathers).  The counter ``sift.describe_passes`` adds one
+an octave's describe pass: ``n_octaves`` a detection, where the kept
+keypoints would need one.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch.nn.functional as F
 from ergo_uvo_tpu_torch.features.detector import Keypoints, top_k
 from ergo_uvo_tpu_torch.features.sampling import extract_patches, sample_patch, separable_taps
 from ergo_uvo_tpu_torch.geometry.triangulation import _solve33
+from ergo_uvo_tpu_torch.utils.profiling import count, span
 
 _N_SPLITS = 8  # orientation bins in the descriptor
 _PATCH = 16  # descriptor sample grid (4x4 cells of 4x4 samples)
@@ -251,29 +259,35 @@ def detect_and_describe_sift(
     img = img.reshape(-1, h, w)
     frame = torch.arange(img.shape[0], device=img.device)[:, None]
     per = []
-    for o, (gauss, dog) in enumerate(build_scale_space(img, n_octaves, n_scales, sigma0)):
-        scores, xy, sigma, l_i, (y_i, x_i), mask = _octave_keypoints(
-            dog, o, n_scales, sigma0, max_keypoints, contrast_thresh, edge_thresh
-        )
-        sigma_rel = sigma / float(1 << o)
-        angle, desc = _orientations_and_desc(gauss, l_i, y_i, x_i, sigma_rel, mask, n_scales)
+    with span("detect.sift.scale_space"):
+        octaves = build_scale_space(img, n_octaves, n_scales, sigma0)
+    for o, (gauss, dog) in enumerate(octaves):
+        with span("detect.sift.extrema"):
+            scores, xy, sigma, l_i, (y_i, x_i), mask = _octave_keypoints(
+                dog, o, n_scales, sigma0, max_keypoints, contrast_thresh, edge_thresh
+            )
+        with span("detect.sift.describe"):
+            count("sift.describe_passes")
+            sigma_rel = sigma / float(1 << o)
+            angle, desc = _orientations_and_desc(gauss, l_i, y_i, x_i, sigma_rel, mask, n_scales)
         per.append((torch.where(mask, scores, float("-inf")), xy, sigma, angle, mask, desc))
 
-    scores = torch.cat([p[0] for p in per], -1)
-    xy = torch.cat([p[1] for p in per], -2)
-    sigma = torch.cat([p[2] for p in per], -1)
-    ang = torch.cat([p[3] for p in per], -1)
-    mask = torch.cat([p[4] for p in per], -1)
-    desc = torch.cat([p[5] for p in per], -2)
-    top_s, top_i = top_k(torch.where(mask, scores, float("-inf")), max_keypoints)
-    top_m = torch.isfinite(top_s)
-    kpts = Keypoints(
-        xy=torch.where(top_m[..., None], xy[frame, top_i], 0.0),
-        scale=torch.where(top_m, sigma[frame, top_i], 0.0),
-        score=torch.where(top_m, top_s, 0.0),
-        laplacian=torch.where(top_m, ang[frame, top_i], 0.0),
-        mask=top_m,
-    )
-    d = torch.where(top_m[..., None], desc[frame, top_i], 0.0)
+    with span("detect.sift.select"):
+        scores = torch.cat([p[0] for p in per], -1)
+        xy = torch.cat([p[1] for p in per], -2)
+        sigma = torch.cat([p[2] for p in per], -1)
+        ang = torch.cat([p[3] for p in per], -1)
+        mask = torch.cat([p[4] for p in per], -1)
+        desc = torch.cat([p[5] for p in per], -2)
+        top_s, top_i = top_k(torch.where(mask, scores, float("-inf")), max_keypoints)
+        top_m = torch.isfinite(top_s)
+        kpts = Keypoints(
+            xy=torch.where(top_m[..., None], xy[frame, top_i], 0.0),
+            scale=torch.where(top_m, sigma[frame, top_i], 0.0),
+            score=torch.where(top_m, top_s, 0.0),
+            laplacian=torch.where(top_m, ang[frame, top_i], 0.0),
+            mask=top_m,
+        )
+        d = torch.where(top_m[..., None], desc[frame, top_i], 0.0)
     return (Keypoints(*(f.reshape(*batch, *f.shape[1:]) for f in kpts)),
             d.reshape(*batch, max_keypoints, 128))

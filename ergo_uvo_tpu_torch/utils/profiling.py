@@ -29,7 +29,8 @@ layer already holds the event on the host.  ``top2_distances.launches``,
 ``jacobi_eigh.launches`` and ``surf_hessian.launches`` count the CUDA
 kernels' launches (the last 5 a SURF detection on the card);
 ``relative_pose.second_attempts`` the frames whose preferred estimator failed
-its gate, so that the other one ran too.
+its gate, so that the other one ran too; ``sift.describe_passes`` SIFT's
+describe passes (one an octave, 4 a detection).
 """
 
 from __future__ import annotations
