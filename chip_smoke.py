@@ -11,8 +11,9 @@ preprocessed slice print side lines):
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. build: nvcc builds ``ergo_uvo_tpu_torch/csrc/top2_distances.cu``,
-   ``ergo_uvo_tpu_torch/csrc/jacobi_eigh.cu`` and
-   ``ergo_uvo_tpu_torch/csrc/surf_hessian.cu`` from the checkout's sources
+   ``ergo_uvo_tpu_torch/csrc/jacobi_eigh.cu``,
+   ``ergo_uvo_tpu_torch/csrc/surf_hessian.cu`` and
+   ``ergo_uvo_tpu_torch/csrc/pnp_refine.cu`` from the checkout's sources
    into ``build/``, one nvcc a source, all started together (seconds,
    ptxas register and spill report of each, and each kernel's SASS
    instruction count where the toolkit has ``cuobjdump``);
@@ -76,7 +77,12 @@ preprocessed slice print side lines):
    keypoints, 512 minimal sets, P3P + PnP RANSAC): two kernel launches a
    frame and one Jacobi launch (P3P), the outputs against ground truth,
    frames 2..23 timed, then the stages of one frame timed apart and two
-   frames under torch.profiler;
+   frames under torch.profiler; beside it a ``pnp_refine`` line: the PnP
+   refinement kernel against the plain chain on that frame's inputs (the
+   pose to 1e-5, ``success`` and ``better`` equal, one launch a call),
+   then per call between CUDA events (median of 100; the plain chain's of
+   10) and as device time under torch.profiler, launches a call of both,
+   and the kernel's ptxas registers and spills;
 11. parity_mono and 12. parity_stereo: the main paths held to the JAX
    package's own outputs (``tests/fixtures/torch_parity_main.npz``, written
    on the CPU by ``tests/test_torch_parity_main.py --write``): 12 frames
@@ -167,12 +173,13 @@ preprocessed slice print side lines):
    reported), frames/s.
 
 Every path runs with the port's spans recorded, so that its SURF detections
-(``detect.hessian`` spans) are counted beside the kernels' launches: each
-detection of a path launched the 5 SURF kernels, every SURF path detected,
-and the SIFT, ORB and AKAZE paths never ran SURF.  Then the card's
-``nvidia-smi`` line again, the kernel summary line (the three kernels'
-launches on every path, the SURF detections, and each kernel's timings and
-bound) and, last, ``{"ok": true, "device": ...}``.
+(``detect.hessian`` spans) and PnP refinements (``pnp.refine`` spans) are
+counted beside the kernels' launches: each detection of a path launched the
+5 SURF kernels, every SURF path detected, the SIFT, ORB and AKAZE paths
+never ran SURF, and each refinement launched the PnP kernel once.  Then the
+card's ``nvidia-smi`` line again, the kernel summary line (the four
+kernels' launches on every path, the SURF detections, and each kernel's
+timings) and, last, ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -190,6 +197,9 @@ ROOT = Path(__file__).resolve().parent
 WORK_DIR = ROOT / "build" / "chip_smoke"  # checkpoints and CLI outputs (git-ignored)
 KERNEL_SOURCE = "ergo_uvo_tpu_torch/csrc/top2_distances.cu"
 KERNEL_REPLACES = "ergo_uvo_tpu/features/pallas_matcher.py:83"
+PNP_SOURCE = "ergo_uvo_tpu_torch/csrc/pnp_refine.cu"
+PNP_REPLACES = "ergo_uvo_tpu_torch/estimation/pnp.py::refine_pnp_reference"
+PNP_POSE_TOL = 1e-5  # tests/test_torch_pnp_kernel.py's: the kernel sums in its own order
 N_FRAMES = 24
 N_BATCHED = 12  # frames of the batched-features phase and of the side runs
 LENS_DISTORTION = [-0.05, 0.01, 0.0, 0.0]  # (k1, k2, p1, p2) of the main path's plan
@@ -210,6 +220,11 @@ def check(cond: bool, what: str) -> None:
 JACOBI_BY_PATH: dict[str, int] = {}
 SURF_BY_PATH: dict[str, int] = {}
 DETECTIONS_BY_PATH: dict[str, int] = {}
+# The PnP kernel's launches and the path's ``pnp.refine`` spans, by path;
+# the ``pnp_refine`` line of ``slice_stereo``.
+PNP_BY_PATH: dict[str, int] = {}
+REFINES_BY_PATH: dict[str, int] = {}
+PNP_REFINE_ROW: dict = {}
 # The span recording that is on while a path is driven.
 _PATH_SPANS = contextlib.ExitStack()
 _path_recording = None
@@ -225,19 +240,24 @@ def _zero_counts() -> None:
     COUNTERS["top2_distances.launches"] = 0
     COUNTERS["jacobi_eigh.launches"] = 0
     COUNTERS["surf_hessian.launches"] = 0
+    COUNTERS["pnp_refine.launches"] = 0
     _path_recording = _PATH_SPANS.enter_context(recording())
 
 
 def _read_counts(path: str) -> int:
     """Read every count just after the path ran: the Jacobi kernel's goes to
     ``JACOBI_BY_PATH[path]``, the SURF kernels' to ``SURF_BY_PATH[path]``,
-    the SURF detections to ``DETECTIONS_BY_PATH[path]``; the top-2 kernel's
-    is returned."""
+    the SURF detections to ``DETECTIONS_BY_PATH[path]``, the PnP kernel's to
+    ``PNP_BY_PATH[path]`` and the refinements to ``REFINES_BY_PATH[path]``;
+    the top-2 kernel's is returned."""
     from ergo_uvo_tpu_torch.utils.profiling import COUNTERS
 
     _PATH_SPANS.close()
     hessian = _path_recording.totals.get("detect.hessian")
     DETECTIONS_BY_PATH[path] = hessian.calls if hessian else 0
+    refine = _path_recording.totals.get("pnp.refine")
+    REFINES_BY_PATH[path] = refine.calls if refine else 0
+    PNP_BY_PATH[path] = COUNTERS["pnp_refine.launches"]
     SURF_BY_PATH[path] = COUNTERS["surf_hessian.launches"]
     JACOBI_BY_PATH[path] = COUNTERS["jacobi_eigh.launches"]
     return COUNTERS["top2_distances.launches"]
@@ -264,7 +284,7 @@ def phase_build():
 
     from ergo_uvo_tpu_torch.cuda_build import BUILD_INFO, load_library
 
-    stems = ("top2_distances", "jacobi_eigh", "surf_hessian")
+    stems = ("top2_distances", "jacobi_eigh", "surf_hessian", "pnp_refine")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(stems)) as pool:
         list(pool.map(load_library, stems))
@@ -1072,6 +1092,7 @@ def _sync_ms(torch, fn, runs=5):
 def _stereo_stages(torch, state, img_l, img_r, rig, cfg):
     """The stages of one steady stereo frame, each timed apart (wall time,
     the card drained around it, median of 5)."""
+    from ergo_uvo_tpu_torch.estimation import pnp as pnp_module
     from ergo_uvo_tpu_torch.estimation.p3p import p3p
     from ergo_uvo_tpu_torch.estimation.pnp import gauss_newton_pnp, solve_pnp_ransac
     from ergo_uvo_tpu_torch.estimation.sampling import sample_minimal_sets
@@ -1105,6 +1126,14 @@ def _stereo_stages(torch, state, img_l, img_r, rig, cfg):
     pnp_ms, pnp = _sync_ms(torch, lambda: solve_pnp_ransac(
         X, xy, good, rig.K_left, cfg.reprojection_error, cfg.num_hypotheses,
         min_inliers=cfg.min_num_inliers, generator=gen))
+    captured, refine = [], pnp_module.refine_pnp
+    pnp_module.refine_pnp = lambda *args: captured.append(args) or refine(*args)
+    try:
+        solve_pnp_ransac(X, xy, good, rig.K_left, cfg.reprojection_error, cfg.num_hypotheses,
+                         min_inliers=cfg.min_num_inliers, generator=gen)
+    finally:
+        pnp_module.refine_pnp = refine
+    PNP_REFINE_ROW.update(_pnp_refine_line(torch, captured[0]))
     idx, _ = sample_minimal_sets(good, cfg.num_hypotheses, 3, gen)
     K = rig.K_left
     xn = torch.stack([(xy[:, 0] - K[0, 2]) / K[0, 0], (xy[:, 1] - K[1, 2]) / K[1, 1],
@@ -1119,6 +1148,48 @@ def _stereo_stages(torch, state, img_l, img_r, rig, cfg):
             "match_ms": match_ms, "triangulate_and_gates_ms": tri_ms, "pnp_ms": pnp_ms,
             "p3p_512_sets_ms": p3p_ms, "gauss_newton_4_steps_ms": gn_ms,
             "pnp_inliers": int(pnp.inliers.sum()), "points": int(good.sum())}
+
+
+def _pnp_refine_line(torch, args):
+    """The PnP refinement kernel against the plain chain on one pair's inputs
+    (``refine_pnp``'s arguments), then both timed; emits and returns the
+    line."""
+    from ergo_uvo_tpu_torch.cuda_build import BUILD_INFO
+    from ergo_uvo_tpu_torch.estimation import pnp
+    from ergo_uvo_tpu_torch.utils.profiling import COUNTERS
+
+    kernel = lambda: pnp.refine_pnp(*args)  # noqa: E731
+    plain = lambda: pnp.refine_pnp_reference(*args)  # noqa: E731
+    before = COUNTERS["pnp_refine.launches"]
+    torch.cuda.set_sync_debug_mode("error")  # a host sync inside the refinement raises
+    try:
+        got = kernel()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    kernels_a_call = COUNTERS["pnp_refine.launches"] - before
+    want = plain()
+    same = [bool(got.better) == bool(want.better), bool(got.success) == bool(want.success)]
+    err = max(float((got.R - want.R).abs().max()), float((got.t - want.t).abs().max()))
+    _, _, launches, _, _ = _profile_launches(torch, kernel, runs=5)
+    _, _, plain_launches, _, _ = _profile_launches(torch, plain, runs=2)
+    mask = args[7]
+    line = {"phase": "pnp_refine", "slots": int(mask.shape[0]), "points": int(mask.sum()),
+            "better": bool(got.better), "success": bool(got.success),
+            "inliers": int(got.inliers.sum()), "plain_inliers": int(want.inliers.sum()),
+            "max_abs_err": err, "kernels_a_call": kernels_a_call,
+            "ms": _time_ms(torch, kernel), "device_ms": _device_ms(torch, kernel),
+            "plain_ms": _time_ms(torch, plain, warmup=2, runs=10),
+            "plain_device_ms": _device_ms(torch, plain, runs=2),
+            "launches_per_call": launches, "plain_launches_per_call": plain_launches,
+            "ptxas": [ln.strip() for ln in BUILD_INFO["pnp_refine"][1].splitlines()
+                      if "registers" in ln or "spill" in ln]}
+    emit(line)
+    check(all(same), f"pnp_refine: better / success differ from the plain chain's: {line}")
+    check(err <= PNP_POSE_TOL, f"pnp_refine: the pose differs from the plain chain's by {err}")
+    check(kernels_a_call == 1, f"pnp_refine: {kernels_a_call} kernel launches a call, not 1")
+    check(line["device_ms"] < line["plain_device_ms"] and line["ms"] < line["plain_ms"],
+          "pnp_refine: the kernel is not faster than the plain chain")
+    return line
 
 
 def phase_slice_stereo(torch):
@@ -2465,6 +2536,15 @@ def main() -> int:
     surf_main = [k for k in paths if k not in other_detector
                  and k not in ("ba", "trajectory_ba", "loop_closure", "dist_ba")]
     check(all(detections[k] > 0 for k in surf_main), f"a SURF path detected nothing: {detections}")
+    # Every PnP refinement of every path launched the PnP kernel once; the
+    # stereo paths refine.
+    pnp_paths = {k: PNP_BY_PATH[k] for k in paths}
+    refines = {k: REFINES_BY_PATH[k] for k in paths}
+    check(pnp_paths == refines,
+          f"a path's PnP refinements did not each launch the PnP kernel once: launches {pnp_paths}, "
+          f"refinements {refines}")
+    check(all(refines[k] > 0 for k in paths if "stereo" in k),
+          f"a stereo path refined no PnP pose: {refines}")
     jacobi_main = jacobi_timings[JACOBI_MAIN]
     surf_one = surf_timings["batch_1"]
     print(smi, flush=True)  # the card again, beside the summary at the end of the output
@@ -2510,7 +2590,17 @@ def main() -> int:
                        "by_shape": {name: {k: row[k] for k in (
                            "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms", "bound_by",
                            "bound_share")}
-                           for name, row in surf_timings.items()}}]})
+                           for name, row in surf_timings.items()}},
+                      {"name": "pnp_refine", "route": "cuda", "source": PNP_SOURCE,
+                       "replaces": PNP_REPLACES, "launches": PNP_BY_PATH["slice_stereo"],
+                       "launches_per_frame": PNP_BY_PATH["slice_stereo"] / N_FRAMES,
+                       "launches_by_path": pnp_paths,
+                       "launches_per_frame_by_path": {k: n / frames_by_path[k]
+                                                      for k, n in pnp_paths.items()},
+                       **{k: PNP_REFINE_ROW[k] for k in (
+                           "slots", "ms", "device_ms", "plain_ms", "plain_device_ms",
+                           "launches_per_call", "plain_launches_per_call", "max_abs_err",
+                           "ptxas")}}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -15,24 +15,39 @@ camera: x_cam = R @ X + t — identical to OpenCV's rvec/tvec.
 Nothing here reads a tensor back to the host: every choice is a
 ``torch.where``, and the damped 6x6 normal equations go through
 ``torch.linalg.solve_ex`` without its error check, so a degenerate system
-gives non-finite numbers (which the masks catch) instead of raising.  The
-refinement is 8 rounds of 4 eager Gauss-Newton steps, 32 small solves a
-frame.
+gives non-finite numbers (which the masks catch) instead of raising.
+
+The refinement (:func:`refine_pnp`: 8 rounds of Cauchy reweighting, 4
+Gauss-Newton steps a round, 32 small solves, then the divergence check) runs
+on the card as one launch of ``csrc/pnp_refine.cu``, where the eager chain,
+:func:`refine_pnp_reference`, issues ~3,460 launches a frame; CPU tensors
+take the eager chain.  The kernel sums in another order than cuBLAS and
+cuSOLVER, so its pose agrees with the eager chain's to rounding; the
+counter ``pnp_refine.launches`` of :mod:`ergo_uvo_tpu_torch.utils.profiling`
+counts its launches, one a refinement.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 from typing import NamedTuple
 
 import torch
 
 from ergo_uvo_tpu_torch.config import RANSAC
+from ergo_uvo_tpu_torch.cuda_build import load_library
 from ergo_uvo_tpu_torch.estimation.p3p import p3p
 from ergo_uvo_tpu_torch.estimation.robust import score_hypotheses
 from ergo_uvo_tpu_torch.estimation.sampling import Sampler, draw_minimal_sets
 from ergo_uvo_tpu_torch.geometry.linalg import cbrt, polar_so3, smallest_eigvec
 from ergo_uvo_tpu_torch.geometry.rotations import skew, so3_exp
-from ergo_uvo_tpu_torch.utils.profiling import span
+from ergo_uvo_tpu_torch.utils.profiling import count, span
+
+_C_INT = ctypes.c_int
+_C_FLOAT = ctypes.c_float
+_C_PTR = ctypes.c_void_p
+MAX_SLOTS = 32768  # the kernel keeps a weight a slot in shared memory (128 KB)
 
 
 class PnPResult(NamedTuple):
@@ -40,6 +55,14 @@ class PnPResult(NamedTuple):
     t: torch.Tensor  # (3,)
     inliers: torch.Tensor  # (N,) bool
     success: torch.Tensor  # scalar bool
+
+
+class PnPRefinement(NamedTuple):
+    R: torch.Tensor  # (3, 3)
+    t: torch.Tensor  # (3,)
+    inliers: torch.Tensor  # (N,) bool
+    success: torch.Tensor  # scalar bool
+    better: torch.Tensor  # scalar bool: the refined pose was kept
 
 
 def _dlt_projection(X_raw: torch.Tensor, xn: torch.Tensor):
@@ -190,42 +213,139 @@ def solve_pnp_ransac(
             best, inliers = score_hypotheses(
                 r2, mask, cand_valid & finite, RANSAC, reprojection_error, model_points=3
             )
-            R_best, t_best = Rs[best], ts[best]
-
         with span("pnp.refine"):
-            thr2 = reprojection_error * reprojection_error
+            out = refine_pnp(Rs, ts, best, inliers, K, X, xy, mask, reprojection_error,
+                             min_inliers, refine_iters, polish_rounds)
+            return PnPResult(R=out.R, t=out.t, inliers=out.inliers, success=out.success)
 
-            # Cauchy-IRLS refinement over ALL masked correspondences (not just
-            # the hard-gated inlier set — a hard gate at ~noise level discards
-            # half the good measurements and biases the fit).  Masked slots may
-            # hold garbage coordinates, which would poison the normal equations
-            # through 0 * inf: sanitize them first.
-            X_safe = torch.where(mask[:, None], X, torch.eye(3, dtype=X.dtype, device=X.device)[2])
-            xy_safe = torch.where(mask[:, None], xy, 0.0)
-            delta = 0.7 * reprojection_error
-            support = 20.0 * reprojection_error
 
-            R_ref, t_ref = R_best, t_best
-            for _ in range(2 * polish_rounds + 2):
-                r2 = _reproj_error_sq(R_ref, t_ref, K, X_safe, xy_safe)
-                r = torch.sqrt(torch.clamp(r2, min=1e-12))
-                w = 1.0 / (1.0 + (r / delta) ** 2)
-                w = torch.where(mask & torch.isfinite(r2) & (r < support), w, 0.0)
-                R_ref, t_ref = gauss_newton_pnp(R_ref, t_ref, K, X_safe, xy_safe, w,
-                                                refine_iters // 2)
+def refine_pnp(
+    Rs: torch.Tensor,  # (M, 3, 3) candidate poses
+    ts: torch.Tensor,  # (M, 3)
+    best: torch.Tensor,  # () int64: the RANSAC winner
+    inliers: torch.Tensor,  # (N,) bool: the winner's inliers
+    K: torch.Tensor,
+    X: torch.Tensor,
+    xy: torch.Tensor,
+    mask: torch.Tensor,
+    reprojection_error: float = 1.0,
+    min_inliers: int = 5,
+    refine_iters: int = 8,
+    polish_rounds: int = 3,
+) -> PnPRefinement:
+    """Polish the RANSAC winner ``Rs[best], ts[best]``: ``2 * polish_rounds +
+    2`` rounds of Cauchy-weighted Gauss-Newton (``refine_iters // 2`` steps
+    each) over every masked correspondence, kept unless it diverged.
 
-            # Accept the refinement unless it diverged.  It is not required to
-            # beat the RANSAC winner's count: the winner is the argmax of
-            # threshold counting and overfits the gate, so the (more accurate)
-            # robust-loss minimizer often counts a few fewer 1 px inliers.
-            r2_ref = _reproj_error_sq(R_ref, t_ref, K, X_safe, xy_safe)
-            inl_ref = mask & (r2_ref <= thr2)
-            better = (
-                torch.isfinite(R_ref).all() & torch.isfinite(t_ref).all()
-                & (2 * inl_ref.sum() >= inliers.sum())
-            )
-            R_out = torch.where(better, R_ref, R_best)
-            t_out = torch.where(better, t_ref, t_best)
-            inl_out = torch.where(better, inl_ref, inliers)
-            success = inl_out.sum() >= min_inliers
-            return PnPResult(R=R_out, t=t_out, inliers=inl_out, success=success)
+    CUDA tensors take the kernel (one launch), CPU tensors
+    :func:`refine_pnp_reference`; nothing falls back.
+    """
+    if X.is_cuda:
+        return _refine_on_card(Rs, ts, best, inliers, K, X, xy, mask, reprojection_error,
+                               min_inliers, refine_iters, polish_rounds)
+    if X.device.type == "cpu":
+        return refine_pnp_reference(Rs, ts, best, inliers, K, X, xy, mask, reprojection_error,
+                                    min_inliers, refine_iters, polish_rounds)
+    raise ValueError(f"refine_pnp: no implementation for device {X.device}")
+
+
+def refine_pnp_reference(
+    Rs, ts, best, inliers, K, X, xy, mask, reprojection_error=1.0, min_inliers=5,
+    refine_iters=8, polish_rounds=3,
+) -> PnPRefinement:
+    """:func:`refine_pnp` as eager PyTorch ops (~3,460 launches on the card):
+    the CPU's path, and the kernel's yardstick in the card tests."""
+    R_best, t_best = Rs[best], ts[best]
+    thr2 = reprojection_error * reprojection_error
+
+    # Cauchy-IRLS refinement over ALL masked correspondences (not just the
+    # hard-gated inlier set — a hard gate at ~noise level discards half the
+    # good measurements and biases the fit).  Masked slots may hold garbage
+    # coordinates, which would poison the normal equations through 0 * inf:
+    # sanitize them first.
+    X_safe = torch.where(mask[:, None], X, torch.eye(3, dtype=X.dtype, device=X.device)[2])
+    xy_safe = torch.where(mask[:, None], xy, 0.0)
+    delta = 0.7 * reprojection_error
+    support = 20.0 * reprojection_error
+
+    R_ref, t_ref = R_best, t_best
+    for _ in range(2 * polish_rounds + 2):
+        r2 = _reproj_error_sq(R_ref, t_ref, K, X_safe, xy_safe)
+        r = torch.sqrt(torch.clamp(r2, min=1e-12))
+        w = 1.0 / (1.0 + (r / delta) ** 2)
+        w = torch.where(mask & torch.isfinite(r2) & (r < support), w, 0.0)
+        R_ref, t_ref = gauss_newton_pnp(R_ref, t_ref, K, X_safe, xy_safe, w, refine_iters // 2)
+
+    # Accept the refinement unless it diverged.  It is not required to beat
+    # the RANSAC winner's count: the winner is the argmax of threshold
+    # counting and overfits the gate, so the (more accurate) robust-loss
+    # minimizer often counts a few fewer 1 px inliers.
+    r2_ref = _reproj_error_sq(R_ref, t_ref, K, X_safe, xy_safe)
+    inl_ref = mask & (r2_ref <= thr2)
+    better = (
+        torch.isfinite(R_ref).all() & torch.isfinite(t_ref).all()
+        & (2 * inl_ref.sum() >= inliers.sum())
+    )
+    R_out = torch.where(better, R_ref, R_best)
+    t_out = torch.where(better, t_ref, t_best)
+    inl_out = torch.where(better, inl_ref, inliers)
+    success = inl_out.sum() >= min_inliers
+    return PnPRefinement(R=R_out, t=t_out, inliers=inl_out, success=success, better=better)
+
+
+def _library() -> ctypes.CDLL:
+    """The built kernel library; the argument types are set when it is loaded."""
+    lib = load_library("pnp_refine")
+    if lib.pnp_refine.argtypes is None:
+        lib.pnp_refine.argtypes = ([_C_PTR] * 8 + [_C_INT] * 4 + [_C_FLOAT] * 3 + [_C_INT]
+                                   + [_C_PTR] * 6)
+        lib.pnp_refine.restype = _C_INT
+    return lib
+
+
+@contextlib.contextmanager
+def _on_card(device: torch.device):
+    """Make the inputs' card current for the launch; yields its current
+    stream's handle.  Inputs anywhere but on a CUDA device are refused: the
+    kernel would read host pointers."""
+    if device.type != "cuda":
+        raise ValueError(f"pnp_refine: the kernel takes tensors on a CUDA device, got {device}")
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
+
+
+def _refine_on_card(Rs, ts, best, inliers, K, X, xy, mask, reprojection_error, min_inliers,
+                    refine_iters, polish_rounds) -> PnPRefinement:
+    """:func:`refine_pnp` in one launch of ``csrc/pnp_refine.cu``."""
+    n, m = X.shape[0], Rs.shape[0]
+    shapes = {"Rs": (Rs, (m, 3, 3)), "ts": (ts, (m, 3)), "best": (best, ()), "K": (K, (3, 3)),
+              "X": (X, (n, 3)), "xy": (xy, (n, 2)), "mask": (mask, (n,)), "inliers": (inliers, (n,))}
+    dtypes = {"best": torch.int64, "mask": torch.bool, "inliers": torch.bool}
+    for name, (tensor, shape) in shapes.items():
+        dtype = dtypes.get(name, torch.float32)
+        if tensor.dtype != dtype:
+            raise TypeError(f"pnp_refine: {name} must be {dtype}, got {tensor.dtype}")
+        if tuple(tensor.shape) != shape:
+            raise ValueError(f"pnp_refine: {name} must be {shape}, got {tuple(tensor.shape)}")
+        if tensor.device != X.device:
+            raise ValueError(f"pnp_refine: {name} is on {tensor.device}, X on {X.device}")
+    if m == 0 or n > MAX_SLOTS:
+        raise ValueError(f"pnp_refine: the kernel takes 1 or more candidates and at most "
+                         f"{MAX_SLOTS} slots, got {m} and {n}")
+    Rs, ts, K, X, xy, mask, inliers = (a.contiguous() for a in (Rs, ts, K, X, xy, mask, inliers))
+    with _on_card(X.device) as stream:
+        R = torch.empty(3, 3, dtype=torch.float32, device=X.device)
+        t = torch.empty(3, dtype=torch.float32, device=X.device)
+        inl = torch.empty(n, dtype=torch.bool, device=X.device)
+        flags = torch.empty(2, dtype=torch.bool, device=X.device)  # success, better
+        err = _library().pnp_refine(
+            Rs.data_ptr(), ts.data_ptr(), best.data_ptr(), K.data_ptr(), X.data_ptr(),
+            xy.data_ptr(), mask.data_ptr(), inliers.data_ptr(), n, m,
+            max(2 * polish_rounds + 2, 0), max(refine_iters // 2, 0),
+            reprojection_error * reprojection_error, 0.7 * reprojection_error,
+            20.0 * reprojection_error, min_inliers, R.data_ptr(), t.data_ptr(), inl.data_ptr(),
+            flags[0].data_ptr(), flags[1].data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"pnp_refine: kernel launch failed: cudaError {err}")
+    count("pnp_refine.launches")
+    return PnPRefinement(R=R, t=t, inliers=inl, success=flags[0], better=flags[1])

@@ -26,8 +26,9 @@ issued, on the trace's own clock.
 
 Counters (:data:`COUNTERS`, :func:`count`) are always on: one added where a
 layer already holds the event on the host.  ``top2_distances.launches``,
-``jacobi_eigh.launches`` and ``surf_hessian.launches`` count the CUDA
-kernels' launches (the last 5 a SURF detection on the card);
+``jacobi_eigh.launches``, ``surf_hessian.launches`` and
+``pnp_refine.launches`` count the CUDA kernels' launches (5 a SURF
+detection on the card, 1 a PnP refinement);
 ``relative_pose.second_attempts`` the frames whose preferred estimator failed
 its gate, so that the other one ran too; ``sift.describe_passes`` SIFT's
 describe passes (one an octave, 4 a detection).
