@@ -29,7 +29,8 @@ preprocessed slice print side lines):
    time of the kernel, of the plain version and of the nearest library route (``torch.cdist`` then
    ``torch.topk``), per call between CUDA events (median of 100 calls after
    10 warm-ups) and as device time of the call's kernels under
-   torch.profiler (mean of 20 calls), beside the card's bound for the shape;
+   torch.profiler (mean of 20 calls), beside the card's bound for the shape
+   (``uvo_bench/roofline.py``, as the benchmark's roofline metrics read it);
 4. jacobi: the Jacobi kernel against its plain PyTorch version on the card,
    bit for bit (0 ulps, NaN where NaN), at (1, 9, 9), (512, 9, 9), P3P's
    (512, 3, 3, 3), (512, 12, 12), a batch of 0, the edge cases (random SPD, a
@@ -41,9 +42,9 @@ preprocessed slice print side lines):
    it was; CUDA inputs it cannot take raise; then at the four shapes the time
    of the kernel, of the plain version and of ``torch.linalg.eigh``, per call
    between CUDA events and as device time under torch.profiler, beside the
-   card's bound, and the kernel's cycles a rotation at the SM clock that
-   ``nvidia-smi`` reads, polled from a thread, while the kernel keeps the card
-   busy (the 512x12x12 batch 64 times over);
+   card's bound (``uvo_bench/roofline.py``), and the kernel's cycles a
+   rotation at the SM clock that ``nvidia-smi`` reads, polled from a thread,
+   while the kernel keeps the card busy (the 512x12x12 batch 64 times over);
 4b. surf: the SURF fast-Hessian kernels (``detect_surf`` on the card)
    against the plain chain (``detect_surf_reference`` on the card) on the
    24 frames of the slice at the mono and stereo thresholds (50, 1500):
@@ -58,12 +59,10 @@ preprocessed slice print side lines):
    kernels' launches (the Jacobi kernel at least once a frame and twice an
    essential frame), checking the outputs against ground truth, and timing
    frames 2..23;
-6. mono_stages: frames 12 and 13 of the slice's run taken apart (one
-   prefers the homography, one the essential matrix; detect + describe,
-   match, the relative pose, ``find_essential``, ``find_homography``, the
-   Sampson Gauss-Newton, each Jacobi solve of the relative pose through the
-   kernel and the plain version, triangulate + gates), then both under
-   torch.profiler (device time, launches, idle share);
+6. mono_solves: frames 12..23 of the slice, one call each: the Jacobi
+   kernel's launches and the relative pose's second attempts around each
+   frame, at least three solves where the frame ran both estimators and one
+   elsewhere, and some frame that fell back;
 7. preprocess: ``preprocess_frame`` (undistort under distortion
    [-0.05, 0.01, 0, 0], CLAHE 3.0) on the same 24 frames on the card: range,
    agreement with the same call on the CPU, ms per frame between CUDA events;
@@ -76,9 +75,8 @@ preprocessed slice print side lines):
 10. slice_stereo: ``run_stereo_vo`` on 24 synthetic 640x480 pairs (SURF, 512
    keypoints, 512 minimal sets, P3P + PnP RANSAC): two kernel launches a
    frame and one Jacobi launch (P3P), the outputs against ground truth,
-   frames 2..23 timed, then the stages of one frame timed apart and two
-   frames under torch.profiler; beside it a ``pnp_refine`` line: the PnP
-   refinement kernel against the plain chain on that frame's inputs (the
+   frames 2..23 timed; beside it a ``pnp_refine`` line: the PnP
+   refinement kernel against the plain chain on pair 12's inputs (the
    pose to 1e-5, ``success`` and ``better`` equal, one launch a call),
    then per call between CUDA events (median of 100; the plain chain's of
    10) and as device time under torch.profiler, launches a call of both,
@@ -377,25 +375,11 @@ def _device_ms(torch, fn, runs=20):
     check(False, "torch.profiler recorded no device time in three traces")
 
 
-# An H100 SXM's published peaks: fp32 FMA outside the tensor cores, device memory.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
 TIMED_SHAPES = [(512, 512, 64), (2048, 2048, 64), (4096, 4096, 128)]
 # The alternate detectors' shapes: SIFT floats, ORB and AKAZE bits.
 DETECTOR_SHAPES = [(512, 512, 128), (512, 512, 256), (512, 512, 512)]
 BINARY_DEPTHS = (256, 512)
 MAIN_SHAPE = "512x512x64"
-
-
-def _bound(q, t, d, valid):
-    """The least time the card could take for these inputs: 2 Q V D fp32
-    operations over the V valid train rows (a masked row is skipped, not
-    scored), and every needed input byte read once (the queries, the valid
-    train rows, the mask) and every output byte written once."""
-    ops_ms = 1e3 * 2.0 * q * valid * d / PEAK_FP32_FLOPS
-    bytes_ms = 1e3 * (4.0 * (q + valid) * d + t + 12.0 * q) / PEAK_BYTES_PER_S
-    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "bound_operations_ms": ops_ms, "bound_bytes_ms": bytes_ms}
 
 
 def _compare(torch, name, got, ref):
@@ -418,6 +402,7 @@ def _compare(torch, name, got, ref):
 
 def phase_kernel(torch):
     from ergo_uvo_tpu_torch.features import top2_matcher
+    from uvo_bench import roofline
 
     dev = torch.device("cuda")
     cases = []
@@ -527,8 +512,8 @@ def phase_kernel(torch):
                "ms": _time_ms(torch, kernel), "device_ms": _device_ms(torch, kernel),
                "plain_ms": _time_ms(torch, plain), "plain_device_ms": _device_ms(torch, plain),
                "library": "cdist+topk",
-               "library_ms": _time_ms(torch, lib), "library_device_ms": _device_ms(torch, lib)}
-        row.update(_bound(nq, nt, nd, int(m.sum())))
+               "library_ms": _time_ms(torch, lib), "library_device_ms": _device_ms(torch, lib),
+               "bound_ms": 1e3 * roofline.top2_distances_bound(nq, nt, nd, int(m.sum()))}
         row["bound_share"] = row["bound_ms"] / row["device_ms"]
         # Device time under every cluster size at the three contract shapes.
         if (nq, nt, nd) in TIMED_SHAPES:
@@ -588,18 +573,6 @@ def _sm_clock_under_load(torch, load):
     poller.join()
     check(len(readings) >= 3, f"jacobi: nvidia-smi gave {len(readings)} clock readings under load")
     return (statistics.median(r[0] for r in readings), statistics.median(r[1] for r in readings))
-
-
-def _jacobi_bound(batch, n, sweeps=JACOBI_SWEEPS):
-    """The least time the card could take: per rotation 18 n + 15 fp32
-    operations (the rows, the columns and V: 6 n each; the rotation's
-    scalars: 15), n (n - 1) / 2 rotations a sweep; each matrix read once,
-    n eigenvalues and n^2 eigenvector entries written once."""
-    ops = batch * sweeps * n * (n - 1) // 2 * (18 * n + 15)
-    ops_ms = 1e3 * ops / PEAK_FP32_FLOPS
-    bytes_ms = 1e3 * 4.0 * batch * (2 * n * n + n) / PEAK_BYTES_PER_S
-    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "bound_operations_ms": ops_ms, "bound_bytes_ms": bytes_ms, "operations": ops}
 
 
 def _jacobi_inputs(torch, dev):
@@ -672,6 +645,7 @@ def phase_jacobi(torch):
     """The Jacobi kernel against its plain version on the card, then timed."""
     from ergo_uvo_tpu_torch.geometry import linalg
     from ergo_uvo_tpu_torch.utils.profiling import COUNTERS
+    from uvo_bench import roofline
 
     dev = torch.device("cuda")
     cases = _jacobi_inputs(torch, dev)
@@ -722,8 +696,8 @@ def phase_jacobi(torch):
                "plain_ms": _time_ms(torch, plain, warmup=1, runs=3),
                "plain_device_ms": _device_ms(torch, plain, runs=1),
                "library": "torch.linalg.eigh",
-               "library_ms": _time_ms(torch, lib), "library_device_ms": _device_ms(torch, lib)}
-        row.update(_jacobi_bound(batch, n))
+               "library_ms": _time_ms(torch, lib), "library_device_ms": _device_ms(torch, lib),
+               "bound_ms": 1e3 * roofline.jacobi_eigh_bound(batch, n, JACOBI_SWEEPS)}
         row["bound_share"] = row["bound_ms"] / row["device_ms"]
         row["cycles_per_rotation"] = row["device_ms"] * 1e3 * mhz / (JACOBI_SWEEPS * n * (n - 1) // 2)
         timings[name] = row
@@ -746,13 +720,17 @@ SURF_OPS_PER_POINT = 52
 
 def _surf_bound(shape, k):
     """The least time the card could take for one detection of
-    ``SurfShape`` ``shape``: every grid point's box responses at
-    ``SURF_OPS_PER_POINT``, and the frames read once and the K keypoints'
-    fields (xy, scale, score, laplacian: 20 bytes; mask: 1) written once."""
-    ops_ms = 1e3 * SURF_OPS_PER_POINT * shape.points() / PEAK_FP32_FLOPS
-    bytes_ms = 1e3 * (4.0 * shape.batch * shape.h * shape.w + 21.0 * shape.batch * k) / PEAK_BYTES_PER_S
-    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "bound_operations_ms": ops_ms, "bound_bytes_ms": bytes_ms}
+    ``SurfShape`` ``shape`` (``uvo_bench/roofline.py``'s peaks): every grid
+    point's box responses at ``SURF_OPS_PER_POINT``, and the frames read once
+    and the K keypoints' fields (xy, scale, score, laplacian: 20 bytes; mask:
+    1) written once."""
+    from uvo_bench import roofline
+
+    ops = SURF_OPS_PER_POINT * shape.points()
+    nbytes = 4.0 * shape.batch * shape.h * shape.w + 21.0 * shape.batch * k
+    by_ops = roofline.bound_seconds(ops, 0.0) >= roofline.bound_seconds(0.0, nbytes)
+    return {"bound_ms": 1e3 * roofline.bound_seconds(ops, nbytes),
+            "bound_by": "operations" if by_ops else "bytes"}
 
 
 def phase_surf(torch, seq):
@@ -1089,67 +1067,6 @@ def _sync_ms(torch, fn, runs=5):
     return statistics.median(times), out
 
 
-def _stereo_stages(torch, state, img_l, img_r, rig, cfg):
-    """The stages of one steady stereo frame, each timed apart (wall time,
-    the card drained around it, median of 5)."""
-    from ergo_uvo_tpu_torch.estimation import pnp as pnp_module
-    from ergo_uvo_tpu_torch.estimation.p3p import p3p
-    from ergo_uvo_tpu_torch.estimation.pnp import gauss_newton_pnp, solve_pnp_ransac
-    from ergo_uvo_tpu_torch.estimation.sampling import sample_minimal_sets
-    from ergo_uvo_tpu_torch.features.frontend import detect_and_describe
-    from ergo_uvo_tpu_torch.features.matcher import match_descriptors
-    from ergo_uvo_tpu_torch.geometry.camera import projection_matrix
-    from ergo_uvo_tpu_torch.geometry.triangulation import filter_3d_points, triangulate_points
-
-    dev = img_l.device
-    gen = torch.Generator(device=dev).manual_seed(1)
-    detect = lambda im: detect_and_describe(im, cfg.surf, cfg.max_keypoints)  # noqa: E731
-    detect_ms, (kl, dl) = _sync_ms(torch, lambda: detect(img_l))
-    pair_ms, _ = _sync_ms(torch, lambda: detect(torch.stack([img_l, img_r])))
-    kr, dr = detect(img_r)
-    match_ms, _ = _sync_ms(torch, lambda: match_descriptors(dl, kl.mask, dr, kr.mask,
-                                                            cfg.lowe_ratio_test))
-    tm = match_descriptors(state.prev_desc_l, state.prev_mask, dl, kl.mask, cfg.lowe_ratio_test)
-    eye3, zero3 = torch.eye(3, device=dev), torch.zeros(3, device=dev)
-
-    def triangulate():
-        P1 = projection_matrix(rig.K_left, eye3, zero3)
-        P2 = projection_matrix(rig.K_right, rig.R_right, rig.t_right)
-        X = triangulate_points(P1, P2, state.prev_xy_l, state.prev_xy_r)
-        good, _ = filter_3d_points(X, tm.mask, rig.K_left, eye3, zero3, rig.K_right, rig.R_right,
-                                   rig.t_right, state.prev_xy_l, state.prev_xy_r,
-                                   cfg.reprojection_threshold, min_points=cfg.min_num_3d_points)
-        return X, good
-
-    tri_ms, (X, good) = _sync_ms(torch, triangulate)
-    xy = kl.xy[tm.idx.long()]
-    pnp_ms, pnp = _sync_ms(torch, lambda: solve_pnp_ransac(
-        X, xy, good, rig.K_left, cfg.reprojection_error, cfg.num_hypotheses,
-        min_inliers=cfg.min_num_inliers, generator=gen))
-    captured, refine = [], pnp_module.refine_pnp
-    pnp_module.refine_pnp = lambda *args: captured.append(args) or refine(*args)
-    try:
-        solve_pnp_ransac(X, xy, good, rig.K_left, cfg.reprojection_error, cfg.num_hypotheses,
-                         min_inliers=cfg.min_num_inliers, generator=gen)
-    finally:
-        pnp_module.refine_pnp = refine
-    PNP_REFINE_ROW.update(_pnp_refine_line(torch, captured[0]))
-    idx, _ = sample_minimal_sets(good, cfg.num_hypotheses, 3, gen)
-    K = rig.K_left
-    xn = torch.stack([(xy[:, 0] - K[0, 2]) / K[0, 0], (xy[:, 1] - K[1, 2]) / K[1, 1],
-                      torch.ones_like(xy[:, 0])], -1)
-    bearings = xn / torch.linalg.vector_norm(xn, dim=-1, keepdim=True)
-    p3p_ms, _ = _sync_ms(torch, lambda: p3p(X[idx], bearings[idx]))
-    w = good.to(X.dtype)
-    X_safe = torch.where(good[:, None], X, eye3[2])
-    xy_safe = torch.where(good[:, None], xy, 0.0)
-    gn_ms, _ = _sync_ms(torch, lambda: gauss_newton_pnp(pnp.R, pnp.t, K, X_safe, xy_safe, w, 4))
-    return {"detect_one_image_ms": detect_ms, "detect_pair_as_one_batch_ms": pair_ms,
-            "match_ms": match_ms, "triangulate_and_gates_ms": tri_ms, "pnp_ms": pnp_ms,
-            "p3p_512_sets_ms": p3p_ms, "gauss_newton_4_steps_ms": gn_ms,
-            "pnp_inliers": int(pnp.inliers.sum()), "points": int(good.sum())}
-
-
 def _pnp_refine_line(torch, args):
     """The PnP refinement kernel against the plain chain on one pair's inputs
     (``refine_pnp``'s arguments), then both timed; emits and returns the
@@ -1194,9 +1111,8 @@ def _pnp_refine_line(torch, args):
 
 def phase_slice_stereo(torch):
     import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
+    from ergo_uvo_tpu_torch.estimation import pnp as pnp_module
     from ergo_uvo_tpu_torch.io import make_stereo_sequence
     from ergo_uvo_tpu_torch.pipeline import run_stereo_vo
 
@@ -1237,23 +1153,19 @@ def phase_slice_stereo(torch):
     check(valid_share > 0.6, f"stereo validity on {valid_share:.2f} of frames <= 0.6")
     rmse, speed = _velocity_check(np, outs, seq.velocities_prevcam)
 
-    # One steady frame's stages apart, then two frames under the profiler.
+    # The refinement's inputs of one steady pair (pair 12, after the pairs
+    # before it) for the ``pnp_refine`` line.
     mid = N_FRAMES // 2
     mid_state, _ = run_stereo_vo(il[:mid], ir[:mid], ts[:mid], rig, cfg,
                                  torch.Generator(device=dev).manual_seed(0))
-    stages = _stereo_stages(torch, mid_state, rest[0][mid - 2], rest[1][mid - 2], rig, cfg)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_stereo_vo(rest[0][mid - 2:mid], rest[1][mid - 2:mid], rest[2][mid - 2:mid], rig, cfg,
-                      gen, state=mid_state)
-        torch.cuda.synchronize()
-        profiled_s = time.perf_counter() - t0
-    events = prof.key_averages()
-    device_us = sum(e.self_device_time_total for e in events
-                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-    n_launch = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
-    check(device_us > 0, "torch.profiler recorded no device time on the stereo path")
+    captured, refine = [], pnp_module.refine_pnp
+    pnp_module.refine_pnp = lambda *args: captured.append(args) or refine(*args)
+    try:
+        run_stereo_vo(il[mid:mid + 1], ir[mid:mid + 1], ts[mid:mid + 1], rig, cfg, gen,
+                      state=mid_state)
+    finally:
+        pnp_module.refine_pnp = refine
+    PNP_REFINE_ROW.update(_pnp_refine_line(torch, captured[0]))
     timed = N_FRAMES - 2
     emit({"phase": "slice_stereo", "frames": N_FRAMES, "height": 480, "width": 640,
           "max_keypoints": 512, "num_hypotheses": 512, "kernel_launches": launches,
@@ -1264,96 +1176,20 @@ def phase_slice_stereo(torch):
           "published": pub.astype(int).tolist(), "validity": val.astype(int).tolist(),
           **{f: outs[f].tolist() for f in (
               "num_features_l", "num_features_r", "num_stereo_matches",
-              "num_triangular_matches", "num_3d_points", "num_pnp_inliers")},
-          "stages": stages,
-          "profiled": {"frames": 2, "wall_ms_per_frame": 1e3 * profiled_s / 2,
-                       "device_ms_per_frame": device_us / 2e3,
-                       "cuda_launch_calls_per_frame": n_launch / 2}})
+              "num_triangular_matches", "num_3d_points", "num_pnp_inliers")}})
     return launches
 
 
-def _mono_stages(torch, state, img, K, cfg):
-    """The stages of one steady mono frame, each timed apart (wall time, the
-    card drained around it, median of 5), and each Jacobi solve of its
-    relative pose timed apart on the input the frame gave it, through the
-    kernel and through the plain version."""
-    from ergo_uvo_tpu_torch.estimation.essential import _normalized, find_essential, gn_refine_essential
-    from ergo_uvo_tpu_torch.estimation.homography import find_homography
-    from ergo_uvo_tpu_torch.estimation.relative_pose import (
-        estimate_relative_pose,
-        select_estimation_method,
-    )
-    from ergo_uvo_tpu_torch.features.frontend import detect_and_describe_cfg
-    from ergo_uvo_tpu_torch.features.matcher import match_descriptors
-    from ergo_uvo_tpu_torch.geometry import linalg
-    from ergo_uvo_tpu_torch.geometry.camera import projection_matrix
-    from ergo_uvo_tpu_torch.geometry.triangulation import filter_3d_points, triangulate_points
-
-    dev = img.device
-    detect_ms, (kp, desc) = _sync_ms(torch, lambda: detect_and_describe_cfg(img, cfg))
-    match_ms, m = _sync_ms(torch, lambda: match_descriptors(state.prev_desc, state.prev_mask, desc,
-                                                            kp.mask, cfg.lowe_ratio_test))
-    xy1 = torch.where(m.mask[:, None], state.prev_xy, 0.0)
-    xy2 = torch.where(m.mask[:, None], kp.xy[m.idx.long()], 0.0)
-    gen = lambda: torch.Generator(device=dev).manual_seed(1)  # noqa: E731
-
-    def pose():
-        return estimate_relative_pose(xy1, xy2, m.mask, K, cfg, state.R, state.t, gen())
-
-    solves, real = [], linalg.jacobi_eigh
-
-    def recording(A, sweeps=7):
-        solves.append(A.clone())
-        return real(A, sweeps)
-
-    linalg.jacobi_eigh = recording
-    try:
-        pose()
-    finally:
-        linalg.jacobi_eigh = real
-    pose_ms, res = _sync_ms(torch, pose)
-    ess = cfg.essential
-    essential_ms, (E, inl) = _sync_ms(torch, lambda: find_essential(
-        xy1, xy2, m.mask, K, ess.outlier_method, ess.threshold, cfg.num_hypotheses, gen()))
-    hom = cfg.homography
-    homography_ms, _ = _sync_ms(torch, lambda: find_homography(
-        xy1, xy2, m.mask, hom.outlier_method, hom.threshold, cfg.num_hypotheses, gen()))
-    x1, x2 = _normalized(K, xy1), _normalized(K, xy2)
-    gn_ms, _ = _sync_ms(torch, lambda: gn_refine_essential(E, x1, x2, inl.to(x1.dtype)))
-    solve_rows = [{"shape": list(A.shape),
-                   "kernel_ms": _sync_ms(torch, lambda A=A: linalg.jacobi_eigh(A))[0],
-                   "plain_ms": _sync_ms(torch, lambda A=A: linalg.jacobi_eigh_reference(A), runs=3)[0]}
-                  for A in solves]
-    eye3, zero3 = torch.eye(3, device=dev), torch.zeros(3, device=dev)
-
-    def triangulate():
-        P1 = projection_matrix(K, eye3, zero3)
-        P2 = projection_matrix(K, res.R, res.t)
-        X = triangulate_points(P1, P2, xy1, xy2)
-        return filter_3d_points(X, res.triangulation_inliers & m.mask, K, eye3, zero3, K, res.R,
-                                res.t, xy1, xy2, cfg.reprojection_threshold,
-                                min_points=cfg.min_num_3d_points)
-
-    tri_ms, _ = _sync_ms(torch, triangulate)
-    return {"detect_ms": detect_ms, "match_ms": match_ms, "relative_pose_ms": pose_ms,
-            "find_essential_ms": essential_ms, "find_homography_ms": homography_ms,
-            "sampson_gauss_newton_6_steps_ms": gn_ms, "jacobi_solves": solve_rows,
-            "triangulate_and_gates_ms": tri_ms,
-            "prefer_essential": bool(select_estimation_method(xy1, xy2, m.mask, cfg.distance)),
-            "used_essential": bool(res.used_essential),
-            "num_matches": int(m.count), "num_inliers": int(res.num_inliers)}
-
-
-def phase_mono_stages(torch, seq):
-    """Frames 12 and 13 of the slice taken apart, each after the frames
-    before it with the slice's generator seed, then both under
-    torch.profiler: device time, launches and the device's idle share.  On
-    the slice's planar scene the frames take turns: one prefers the
-    homography (one Jacobi solve), the next the essential matrix, whose gate
-    fails on the plane, and then the homography too (three solves)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def phase_mono_solves(torch, seq):
+    """The Jacobi kernel's solves a relative pose, frame by frame: frames
+    12..23 of the slice, one call each after the frames before them with the
+    slice's generator seed, the kernel's launches and the relative pose's
+    second attempts counted around each frame.  A branch solves once it runs
+    (the essential matrix twice: its 8-point solve and its refit; the
+    homography once), so a frame whose preferred estimator failed its gate
+    and which ran the other one too solves at least three times, any other
+    frame at least once.  On the slice's planar scene the frames take turns,
+    and an essential frame's gate fails on the plane: some frame falls back."""
     from ergo_uvo_tpu_torch.pipeline import run_mono_vo
     from ergo_uvo_tpu_torch.utils.profiling import COUNTERS
 
@@ -1362,38 +1198,22 @@ def phase_mono_stages(torch, seq):
     mid = N_FRAMES // 2
     imgs, ts, rg, K = (torch.as_tensor(x).to(dev) for x in (seq.imgs_left, seq.timestamps,
                                                             seq.ranges, seq.K))
-    stages = []
-    for f in (mid + 1, mid):  # frame `mid`'s state and generator are kept for the profile
-        gen = torch.Generator(device=dev).manual_seed(0)
-        state, _ = run_mono_vo(imgs[:f], ts[:f], rg[:f], K, cfg, gen)
-        stages.insert(0, {"frame": f, **_mono_stages(torch, state, imgs[f], K, cfg)})
-    torch.cuda.synchronize()
-    before = COUNTERS["jacobi_eigh.launches"]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_mono_vo(imgs[mid:mid + 2], ts[mid:mid + 2], rg[mid:mid + 2], K, cfg, gen, state=state)
-        torch.cuda.synchronize()
-        profiled_s = time.perf_counter() - t0
-    solves = COUNTERS["jacobi_eigh.launches"] - before
-    events = prof.key_averages()
-    device_us = sum(e.self_device_time_total for e in events
-                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-    jacobi_us = sum(e.self_device_time_total for e in events
-                    if e.device_type == DeviceType.CUDA and "jacobi_eigh" in e.key)
-    n_launch = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
-    check(device_us > 0, "torch.profiler recorded no device time on the mono path")
-    wall_ms = 1e3 * profiled_s / 2
-    emit({"phase": "mono_stages", "height": 480, "width": 640, "stages": stages,
-          "profiled": {"frames": 2, "wall_ms_per_frame": wall_ms,
-                       "device_ms_per_frame": device_us / 2e3,
-                       "jacobi_device_ms_per_frame": jacobi_us / 2e3,
-                       "jacobi_launches_per_frame": solves / 2,
-                       "device_idle_share": 1.0 - device_us / 2e3 / wall_ms,
-                       "cuda_launch_calls_per_frame": n_launch / 2}})
-    for st in stages:
-        solves = len(st["jacobi_solves"])
-        check(solves >= (3 if st["prefer_essential"] and not st["used_essential"] else 1),
-              f"mono_stages: frame {st['frame']}: {solves} Jacobi solves in the relative pose")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, _ = run_mono_vo(imgs[:mid], ts[:mid], rg[:mid], K, cfg, gen)
+    frames = []
+    for f in range(mid, N_FRAMES):
+        solves, second = COUNTERS["jacobi_eigh.launches"], COUNTERS["relative_pose.second_attempts"]
+        state, out = run_mono_vo(imgs[f:f + 1], ts[f:f + 1], rg[f:f + 1], K, cfg, gen, state=state)
+        frames.append({"frame": f, "jacobi_launches": COUNTERS["jacobi_eigh.launches"] - solves,
+                       "second_attempt": COUNTERS["relative_pose.second_attempts"] > second,
+                       "used_essential": bool(out.used_essential[0])})
+    emit({"phase": "mono_solves", "frames": frames})
+    for fr in frames:
+        check(fr["jacobi_launches"] >= (3 if fr["second_attempt"] else 1),
+              f"mono_solves: frame {fr['frame']}: {fr['jacobi_launches']} Jacobi solves in the "
+              f"relative pose, second attempt {fr['second_attempt']}")
+    check(any(fr["second_attempt"] for fr in frames),
+          f"mono_solves: no frame of {mid}..{N_FRAMES - 1} ran a second estimator: {frames}")
 
 
 def phase_plain_jacobi(torch, seq):
@@ -2459,6 +2279,21 @@ def phase_dist_vo(torch):
     return launches
 
 
+def _kernel_entry(name, source, replaces, by_path, frames_by_path, main_path, row, keys,
+                  by_shape=None, shape_keys=(), **extra):
+    """One kernel's entry of the summary line: its launches on every path
+    (``main_path``'s as its count a frame), ``keys`` of its main timing
+    ``row`` and ``shape_keys`` of each row of ``by_shape``."""
+    entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": by_path[main_path], "launches_per_frame": by_path[main_path] / N_FRAMES,
+             "launches_by_path": by_path,
+             "launches_per_frame_by_path": {k: n / frames_by_path[k] for k, n in by_path.items()},
+             **extra, **{k: row[k] for k in keys}}
+    if by_shape is not None:
+        entry["by_shape"] = {shape: {k: r[k] for k in shape_keys} for shape, r in by_shape.items()}
+    return entry
+
+
 def main() -> int:
     if not (ROOT / "ergo_uvo_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: ergo_uvo_tpu_torch/ not found beside this script; "
@@ -2477,7 +2312,7 @@ def main() -> int:
     seq = _mono_sequence()
     surf_timings = phase_surf(torch, seq)
     launches, slice_outs = phase_slice(torch, seq)
-    phase_mono_stages(torch, seq)
+    phase_mono_solves(torch, seq)
     plan, frames = phase_preprocess(torch, seq)
     preprocessed_launches, lens = phase_slice_preprocessed(torch, seq, plan, frames)
     paths = {"slice": launches,
@@ -2548,59 +2383,25 @@ def main() -> int:
     jacobi_main = jacobi_timings[JACOBI_MAIN]
     surf_one = surf_timings["batch_1"]
     print(smi, flush=True)  # the card again, beside the summary at the end of the output
-    emit({"kernels": [{"name": "top2_distances", "route": "cuda", "source": KERNEL_SOURCE,
-                       "replaces": KERNEL_REPLACES, "launches": launches,
-                       "launches_per_frame": launches / N_FRAMES,
-                       "launches_by_path": paths,
-                       "launches_per_frame_by_path": {k: n / frames_by_path[k]
-                                                      for k, n in paths.items()},
-                       "max_abs_err": max_err,
-                       **{k: main_shape[k] for k in (
-                           "shape", "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
-                           "bound_by", "library", "library_ms", "library_device_ms")},
-                       "by_shape": {name: {k: row[k] for k in (
-                           "ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
-                           "library_device_ms", "bound_ms", "bound_by")}
-                           for name, row in timings.items()}},
-                      {"name": "jacobi_eigh", "route": "cuda", "source": JACOBI_SOURCE,
-                       "replaces": JACOBI_REPLACES, "launches": JACOBI_BY_PATH["slice"],
-                       "launches_per_frame": JACOBI_BY_PATH["slice"] / N_FRAMES,
-                       "launches_by_path": jacobi_paths,
-                       "launches_per_frame_by_path": {k: n / frames_by_path[k]
-                                                      for k, n in jacobi_paths.items()},
-                       "max_abs_err": jacobi_err,
-                       **{k: jacobi_main[k] for k in (
-                           "shape", "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
-                           "bound_by", "library", "library_ms", "library_device_ms",
-                           "cycles_per_rotation")},
-                       "by_shape": {name: {k: row[k] for k in (
-                           "ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
-                           "library_device_ms", "bound_ms", "bound_by", "cycles_per_rotation")}
-                           for name, row in jacobi_timings.items()}},
-                      {"name": "surf_hessian", "route": "cuda", "source": SURF_SOURCE,
-                       "replaces": SURF_REPLACES, "launches": SURF_BY_PATH["slice"],
-                       "launches_per_frame": SURF_BY_PATH["slice"] / N_FRAMES,
-                       "launches_by_path": surf_paths,
-                       "launches_per_frame_by_path": {k: n / frames_by_path[k]
-                                                      for k, n in surf_paths.items()},
-                       "detections_by_path": detections,
-                       **{k: surf_one[k] for k in (
-                           "shape", "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
-                           "bound_by")},
-                       "by_shape": {name: {k: row[k] for k in (
-                           "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms", "bound_by",
-                           "bound_share")}
-                           for name, row in surf_timings.items()}},
-                      {"name": "pnp_refine", "route": "cuda", "source": PNP_SOURCE,
-                       "replaces": PNP_REPLACES, "launches": PNP_BY_PATH["slice_stereo"],
-                       "launches_per_frame": PNP_BY_PATH["slice_stereo"] / N_FRAMES,
-                       "launches_by_path": pnp_paths,
-                       "launches_per_frame_by_path": {k: n / frames_by_path[k]
-                                                      for k, n in pnp_paths.items()},
-                       **{k: PNP_REFINE_ROW[k] for k in (
-                           "slots", "ms", "device_ms", "plain_ms", "plain_device_ms",
-                           "launches_per_call", "plain_launches_per_call", "max_abs_err",
-                           "ptxas")}}]})
+    timing = ("ms", "device_ms", "plain_ms", "plain_device_ms")
+    library = ("library", "library_ms", "library_device_ms")
+    emit({"kernels": [
+        _kernel_entry("top2_distances", KERNEL_SOURCE, KERNEL_REPLACES, paths, frames_by_path,
+                      "slice", main_shape, ("shape", *timing, "bound_ms", *library), timings,
+                      (*timing, *library[1:], "bound_ms"), max_abs_err=max_err),
+        _kernel_entry("jacobi_eigh", JACOBI_SOURCE, JACOBI_REPLACES, jacobi_paths, frames_by_path,
+                      "slice", jacobi_main, ("shape", *timing, "bound_ms", *library,
+                                             "cycles_per_rotation"), jacobi_timings,
+                      (*timing, *library[1:], "bound_ms", "cycles_per_rotation"),
+                      max_abs_err=jacobi_err),
+        _kernel_entry("surf_hessian", SURF_SOURCE, SURF_REPLACES, surf_paths, frames_by_path,
+                      "slice", surf_one, ("shape", *timing, "bound_ms", "bound_by"), surf_timings,
+                      (*timing, "bound_ms", "bound_by", "bound_share"),
+                      detections_by_path=detections),
+        _kernel_entry("pnp_refine", PNP_SOURCE, PNP_REPLACES, pnp_paths, frames_by_path,
+                      "slice_stereo", PNP_REFINE_ROW,
+                      ("slots", *timing, "launches_per_call", "plain_launches_per_call",
+                       "max_abs_err", "ptxas"))]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,14 +1,25 @@
-"""Build the port's CUDA sources with nvcc and load them with ctypes.
+"""Build the port's CUDA sources with nvcc, load them with ctypes, and reach them.
 
 Each ``csrc/<stem>.cu`` is compiled at first use, on the machine with the
 card, into ``build/ergo_uvo_tpu_torch/lib<stem>_<hash>.so`` under the
 checkout's root, where ``<hash>`` covers the source and the compiler flags, so
 an edited source is rebuilt and an unchanged one is loaded as built.  Nothing
 is compiled when the module is imported.
+
+Every hand-written kernel is reached the same way, through this module
+(``cuda_build.bind(...)``, so that one test double stands in for all of
+them)::
+
+    if cuda_build.use_kernel(x.device, "who"):   # CUDA: the kernel; CPU: plain
+        ...checks, outputs, the empty-input return...
+        with cuda_build.on_card(x.device, "who") as stream:
+            err = cuda_build.bind(stem, SIGNATURES).entry(..., stream)
+        cuda_build.launched(err, "who", "<stem>.launches")
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,6 +28,10 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
+from ergo_uvo_tpu_torch.utils.profiling import count
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "ergo_uvo_tpu_torch"
 NVCC_FLAGS = (
@@ -24,7 +39,13 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# The C types of the entry points' arguments: a pointer is a device buffer, a
+# host array of them or a stream's handle.  An entry point returns its
+# ``cudaError`` as an int unless its signature says otherwise.
+INT, FLOAT, PTR = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+
 _LIBRARIES: dict[str, ctypes.CDLL] = {}
+_BOUND: set[str] = set()  # stems whose entry points have their types set
 # stem -> (seconds spent in nvcc in this process, or 0.0 if the library was
 # already built; nvcc's stderr, which holds ptxas's register/spill report).
 BUILD_INFO: dict[str, tuple[float, str]] = {}
@@ -72,3 +93,47 @@ def load_library(stem: str) -> ctypes.CDLL:
     _LIBRARIES[stem] = lib
     BUILD_INFO[stem] = (seconds, log)
     return lib
+
+
+def bind(stem: str, signatures: dict) -> ctypes.CDLL:
+    """:func:`load_library` with each entry point's types set on first use.
+
+    ``signatures`` maps an entry point's name to its argument types, or to
+    ``(argument types, result type)`` where it returns no ``cudaError``.
+    """
+    lib = load_library(stem)
+    if stem not in _BOUND:
+        for name, sig in signatures.items():
+            argtypes, restype = sig if isinstance(sig, tuple) else (sig, INT)
+            entry = getattr(lib, name)
+            entry.argtypes, entry.restype = argtypes, restype
+        _BOUND.add(stem)
+    return lib
+
+
+@contextlib.contextmanager
+def on_card(device: torch.device, who: str):
+    """Make ``device`` current for a launch and yield its current stream's
+    handle.  A device that is not CUDA is refused: the kernel would read host
+    pointers."""
+    if device.type != "cuda":
+        raise ValueError(f"{who}: the kernel takes tensors on a CUDA device, got {device}")
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
+
+
+def launched(err: int, who: str, counter: str) -> None:
+    """Raise on an entry point's non-zero ``cudaError``; else count one launch
+    under ``counter``."""
+    if err != 0:
+        raise RuntimeError(f"{who}: kernel launch failed: cudaError {err}")
+    count(counter)
+
+
+def use_kernel(device: torch.device, who: str) -> bool:
+    """The dispatch of every kernel's public function: CUDA tensors take the
+    kernel (True), CPU tensors the plain version (False); any other device
+    raises."""
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{who}: no implementation for device {device}")
+    return device.type == "cuda"

@@ -29,24 +29,20 @@ counts its launches, one a refinement.
 
 from __future__ import annotations
 
-import contextlib
-import ctypes
 from typing import NamedTuple
 
 import torch
 
+from ergo_uvo_tpu_torch import cuda_build
 from ergo_uvo_tpu_torch.config import RANSAC
-from ergo_uvo_tpu_torch.cuda_build import load_library
+from ergo_uvo_tpu_torch.cuda_build import FLOAT, INT, PTR
 from ergo_uvo_tpu_torch.estimation.p3p import p3p
 from ergo_uvo_tpu_torch.estimation.robust import score_hypotheses
 from ergo_uvo_tpu_torch.estimation.sampling import Sampler, draw_minimal_sets
 from ergo_uvo_tpu_torch.geometry.linalg import cbrt, polar_so3, smallest_eigvec
 from ergo_uvo_tpu_torch.geometry.rotations import skew, so3_exp
-from ergo_uvo_tpu_torch.utils.profiling import count, span
+from ergo_uvo_tpu_torch.utils.profiling import span
 
-_C_INT = ctypes.c_int
-_C_FLOAT = ctypes.c_float
-_C_PTR = ctypes.c_void_p
 MAX_SLOTS = 32768  # the kernel keeps a weight a slot in shared memory (128 KB)
 
 
@@ -240,13 +236,11 @@ def refine_pnp(
     CUDA tensors take the kernel (one launch), CPU tensors
     :func:`refine_pnp_reference`; nothing falls back.
     """
-    if X.is_cuda:
-        return _refine_on_card(Rs, ts, best, inliers, K, X, xy, mask, reprojection_error,
-                               min_inliers, refine_iters, polish_rounds)
-    if X.device.type == "cpu":
-        return refine_pnp_reference(Rs, ts, best, inliers, K, X, xy, mask, reprojection_error,
-                                    min_inliers, refine_iters, polish_rounds)
-    raise ValueError(f"refine_pnp: no implementation for device {X.device}")
+    args = (Rs, ts, best, inliers, K, X, xy, mask, reprojection_error, min_inliers, refine_iters,
+            polish_rounds)
+    if cuda_build.use_kernel(X.device, "refine_pnp"):
+        return _launch(*args)
+    return refine_pnp_reference(*args)
 
 
 def refine_pnp_reference(
@@ -293,28 +287,10 @@ def refine_pnp_reference(
     return PnPRefinement(R=R_out, t=t_out, inliers=inl_out, success=success, better=better)
 
 
-def _library() -> ctypes.CDLL:
-    """The built kernel library; the argument types are set when it is loaded."""
-    lib = load_library("pnp_refine")
-    if lib.pnp_refine.argtypes is None:
-        lib.pnp_refine.argtypes = ([_C_PTR] * 8 + [_C_INT] * 4 + [_C_FLOAT] * 3 + [_C_INT]
-                                   + [_C_PTR] * 6)
-        lib.pnp_refine.restype = _C_INT
-    return lib
+SIGNATURES = {"pnp_refine": [PTR] * 8 + [INT] * 4 + [FLOAT] * 3 + [INT] + [PTR] * 6}
 
 
-@contextlib.contextmanager
-def _on_card(device: torch.device):
-    """Make the inputs' card current for the launch; yields its current
-    stream's handle.  Inputs anywhere but on a CUDA device are refused: the
-    kernel would read host pointers."""
-    if device.type != "cuda":
-        raise ValueError(f"pnp_refine: the kernel takes tensors on a CUDA device, got {device}")
-    with torch.cuda.device(device):
-        yield torch.cuda.current_stream(device).cuda_stream
-
-
-def _refine_on_card(Rs, ts, best, inliers, K, X, xy, mask, reprojection_error, min_inliers,
+def _launch(Rs, ts, best, inliers, K, X, xy, mask, reprojection_error, min_inliers,
                     refine_iters, polish_rounds) -> PnPRefinement:
     """:func:`refine_pnp` in one launch of ``csrc/pnp_refine.cu``."""
     n, m = X.shape[0], Rs.shape[0]
@@ -333,19 +309,17 @@ def _refine_on_card(Rs, ts, best, inliers, K, X, xy, mask, reprojection_error, m
         raise ValueError(f"pnp_refine: the kernel takes 1 or more candidates and at most "
                          f"{MAX_SLOTS} slots, got {m} and {n}")
     Rs, ts, K, X, xy, mask, inliers = (a.contiguous() for a in (Rs, ts, K, X, xy, mask, inliers))
-    with _on_card(X.device) as stream:
+    with cuda_build.on_card(X.device, "pnp_refine") as stream:
         R = torch.empty(3, 3, dtype=torch.float32, device=X.device)
         t = torch.empty(3, dtype=torch.float32, device=X.device)
         inl = torch.empty(n, dtype=torch.bool, device=X.device)
         flags = torch.empty(2, dtype=torch.bool, device=X.device)  # success, better
-        err = _library().pnp_refine(
+        err = cuda_build.bind("pnp_refine", SIGNATURES).pnp_refine(
             Rs.data_ptr(), ts.data_ptr(), best.data_ptr(), K.data_ptr(), X.data_ptr(),
             xy.data_ptr(), mask.data_ptr(), inliers.data_ptr(), n, m,
             max(2 * polish_rounds + 2, 0), max(refine_iters // 2, 0),
             reprojection_error * reprojection_error, 0.7 * reprojection_error,
             20.0 * reprojection_error, min_inliers, R.data_ptr(), t.data_ptr(), inl.data_ptr(),
             flags[0].data_ptr(), flags[1].data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"pnp_refine: kernel launch failed: cudaError {err}")
-    count("pnp_refine.launches")
+    cuda_build.launched(err, "pnp_refine", "pnp_refine.launches")
     return PnPRefinement(R=R, t=t, inliers=inl, success=flags[0], better=flags[1])

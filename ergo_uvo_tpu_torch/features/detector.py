@@ -31,6 +31,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ergo_uvo_tpu_torch import cuda_build
 from ergo_uvo_tpu_torch.features import surf_hessian
 from ergo_uvo_tpu_torch.features.integral import integral_image, pad_integral
 from ergo_uvo_tpu_torch.geometry.triangulation import _solve33
@@ -296,11 +297,9 @@ def detect_surf(
     with span("detect.hessian"):
         *batch, h, w = img.shape
         frames = img.reshape(-1, h, w)
-        if frames.is_cuda:
+        if cuda_build.use_kernel(frames.device, "detect_surf"):
             fields = surf_hessian.detect(frames, max_keypoints, min_hessian, n_octaves, n_layers,
                                          surf_margin(n_octaves, n_layers))
-        elif frames.device.type == "cpu":
-            fields = detect_surf_reference(frames, max_keypoints, min_hessian, n_octaves, n_layers)
         else:
-            raise ValueError(f"detect_surf: no implementation for device {frames.device}")
+            fields = detect_surf_reference(frames, max_keypoints, min_hessian, n_octaves, n_layers)
         return Keypoints(*(f.reshape(*batch, *f.shape[1:]) for f in fields))

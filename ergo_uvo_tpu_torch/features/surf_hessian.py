@@ -30,21 +30,23 @@ of :func:`detect`, so a run can show that its detection went through them.
 
 from __future__ import annotations
 
-import contextlib
-import ctypes
 from typing import NamedTuple
 
 import torch
 
-from ergo_uvo_tpu_torch.cuda_build import load_library
-from ergo_uvo_tpu_torch.utils.profiling import count
+from ergo_uvo_tpu_torch import cuda_build
+from ergo_uvo_tpu_torch.cuda_build import FLOAT, INT, PTR
 
 MAX_OCTAVES = 8  # the kernels' bound on octaves (strides up to 128)
 
-_C_INT = ctypes.c_int
-_C_FLOAT = ctypes.c_float
-_C_PTR = ctypes.c_void_p
-_SHAPE = [_C_INT] * 6  # batch, h, w, n_octaves, layers, margin
+_SHAPE = [INT] * 6  # batch, h, w, n_octaves, layers, margin
+SIGNATURES = {
+    "surf_integral_columns": [PTR] * 2 + _SHAPE + [PTR],
+    "surf_integral_rows": [PTR] * 2 + _SHAPE + [PTR],
+    "surf_responses": [PTR] * 3 + _SHAPE + [PTR],
+    "surf_peaks": [PTR] * 2 + _SHAPE + [FLOAT, PTR],
+    "surf_refine_merge": [PTR] * 4 + _SHAPE + [INT, FLOAT] + [PTR] * 5 + [PTR],
+}
 
 
 class SurfShape(NamedTuple):
@@ -76,39 +78,10 @@ class SurfShape(NamedTuple):
         return sum(self.batch * self.layers * h_o * w_o for h_o, w_o in self.grids)
 
 
-def _library() -> ctypes.CDLL:
-    """The built kernel library; the argument types are set when it is loaded."""
-    lib = load_library("surf_hessian")
-    if lib.surf_refine_merge.argtypes is None:
-        lib.surf_integral_columns.argtypes = [_C_PTR] * 2 + _SHAPE + [_C_PTR]
-        lib.surf_integral_rows.argtypes = [_C_PTR] * 2 + _SHAPE + [_C_PTR]
-        lib.surf_responses.argtypes = [_C_PTR] * 3 + _SHAPE + [_C_PTR]
-        lib.surf_peaks.argtypes = [_C_PTR] * 2 + _SHAPE + [_C_FLOAT, _C_PTR]
-        lib.surf_refine_merge.argtypes = ([_C_PTR] * 4 + _SHAPE + [_C_INT, _C_FLOAT]
-                                          + [_C_PTR] * 5 + [_C_PTR])
-        for fn in ("surf_integral_columns", "surf_integral_rows", "surf_responses", "surf_peaks",
-                   "surf_refine_merge"):
-            getattr(lib, fn).restype = _C_INT
-    return lib
-
-
-@contextlib.contextmanager
-def _on_card(device: torch.device):
-    """Make the frames' card current for the call; yields its current
-    stream's handle.  Frames anywhere but on a CUDA device are refused: the
-    kernels would read host pointers."""
-    if device.type != "cuda":
-        raise ValueError(f"surf_hessian: the kernels take frames on a CUDA device, got {device}")
-    with torch.cuda.device(device):
-        yield torch.cuda.current_stream(device).cuda_stream
-
-
 def _launch(name: str, *args) -> None:
     """Call the entry point ``name``: one kernel launch, counted."""
-    err = getattr(_library(), name)(*args)
-    if err != 0:
-        raise RuntimeError(f"surf_hessian: {name} failed: cudaError {err}")
-    count("surf_hessian.launches")
+    err = getattr(cuda_build.bind("surf_hessian", SIGNATURES), name)(*args)
+    cuda_build.launched(err, f"surf_hessian: {name}", "surf_hessian.launches")
 
 
 def padded_integral(img: torch.Tensor, shape: SurfShape, stream: int) -> torch.Tensor:
@@ -159,7 +132,7 @@ def detect(
     dev = frames.device
     b, h, w = frames.shape
     k = max_keypoints
-    with _on_card(dev) as stream:
+    with cuda_build.on_card(dev, "surf_hessian") as stream:
         xy = torch.empty(b, k, 2, dtype=torch.float32, device=dev)
         scale = torch.empty(b, k, dtype=torch.float32, device=dev)
         score = torch.empty_like(scale)
@@ -176,8 +149,8 @@ def detect(
         # flat scores, of which the kernel reads the first min(K, n) a frame.
         ranked = [torch.sort(s.reshape(b, -1), dim=-1, descending=True, stable=True)
                   for s in shape.split(flat)]
-        values = (_C_PTR * n_octaves)(*(v.data_ptr() for v, _ in ranked))
-        indices = (_C_PTR * n_octaves)(*(i.data_ptr() for _, i in ranked))
+        values = (PTR * n_octaves)(*(v.data_ptr() for v, _ in ranked))
+        indices = (PTR * n_octaves)(*(i.data_ptr() for _, i in ranked))
         _launch("surf_refine_merge", det.data_ptr(), trace.data_ptr(), values, indices, *shape, k,
                 min_hessian, xy.data_ptr(), scale.data_ptr(), score.data_ptr(), lap.data_ptr(),
                 mask.data_ptr(), stream)

@@ -24,12 +24,10 @@ valid column gives (+inf, 0, +inf).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ergo_uvo_tpu_torch.cuda_build import load_library
-from ergo_uvo_tpu_torch.utils.profiling import count
+from ergo_uvo_tpu_torch import cuda_build
+from ergo_uvo_tpu_torch.cuda_build import INT, PTR
 
 
 def _masked_distances(desc_q: torch.Tensor, desc_t: torch.Tensor, mask_t: torch.Tensor):
@@ -63,27 +61,17 @@ def top2_distances_reference(
     return _row_top2(_masked_distances(desc_q, desc_t, mask_t))
 
 
-_C_INT = ctypes.c_int
-_C_PTR = ctypes.c_void_p
-
-
-def _library() -> ctypes.CDLL:
-    """The built kernel library; the argument types are set when it is loaded."""
-    lib = load_library("top2_distances")
-    if lib.top2_distances_launch.argtypes is None:
-        lib.top2_distances_plan.argtypes = [_C_INT] * 3 + [_C_PTR]
-        lib.top2_distances_plan.restype = None
-        lib.top2_distances_launch.argtypes = [_C_PTR] * 6 + [_C_INT] * 3 + [_C_PTR]
-        lib.top2_distances_launch.restype = _C_INT
-        lib.top2_distances_launch_forced.argtypes = [_C_PTR] * 6 + [_C_INT] * 4 + [_C_PTR]
-        lib.top2_distances_launch_forced.restype = _C_INT
-    return lib
+SIGNATURES = {
+    "top2_distances_plan": ([INT] * 3 + [PTR], None),
+    "top2_distances_launch": [PTR] * 6 + [INT] * 3 + [PTR],
+    "top2_distances_launch_forced": [PTR] * 6 + [INT] * 4 + [PTR],
+}
 
 
 def launch_plan(Q: int, T: int, D: int) -> dict:
     """The grid the kernel uses at this shape on the current device (for reports)."""
-    out = (_C_INT * 5)()
-    _library().top2_distances_plan(Q, T, D, out)
+    out = (INT * 5)()
+    cuda_build.bind("top2_distances", SIGNATURES).top2_distances_plan(Q, T, D, out)
     keys = ("cluster", "query_tiles", "cols_per_rank", "q_resident", "smem_bytes")
     plan = dict(zip(keys, out))
     plan["blocks"] = plan["query_tiles"] * plan["cluster"]
@@ -118,18 +106,15 @@ def _launch(
     if Q == 0:
         return min1, idx1, min2
 
-    lib = _library()
     ptrs = (desc_q.data_ptr(), desc_t.data_ptr(), mask_t.data_ptr(),
             min1.data_ptr(), idx1.data_ptr(), min2.data_ptr())
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with cuda_build.on_card(dev, "top2_distances") as stream:
+        lib = cuda_build.bind("top2_distances", SIGNATURES)
         if splits is None:
             err = lib.top2_distances_launch(*ptrs, Q, T, D, stream)
         else:
             err = lib.top2_distances_launch_forced(*ptrs, Q, T, D, splits, stream)
-    if err != 0:
-        raise RuntimeError(f"top2_distances kernel launch failed: cudaError {err}")
-    count("top2_distances.launches")
+    cuda_build.launched(err, "top2_distances", "top2_distances.launches")
     return min1, idx1, min2
 
 
@@ -138,15 +123,11 @@ def launch_forced(
 ):
     """The kernel under a cluster of ``splits`` blocks (1, 2, 4 or 8) instead
     of the size its shape picks; CUDA tensors only."""
-    if not desc_q.is_cuda:
-        raise ValueError(f"launch_forced needs CUDA tensors, got {desc_q.device}")
     return _launch(desc_q, desc_t, mask_t, splits)
 
 
 def top2_distances(desc_q: torch.Tensor, desc_t: torch.Tensor, mask_t: torch.Tensor):
     """Row-wise (min1, idx1, min2) squared L2 distances; see the module doc."""
-    if desc_q.is_cuda:
+    if cuda_build.use_kernel(desc_q.device, "top2_distances"):
         return _launch(desc_q, desc_t, mask_t)
-    if desc_q.device.type == "cpu":
-        return top2_distances_reference(desc_q, desc_t, mask_t)
-    raise ValueError(f"top2_distances: no implementation for device {desc_q.device}")
+    return top2_distances_reference(desc_q, desc_t, mask_t)

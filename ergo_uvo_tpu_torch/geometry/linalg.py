@@ -24,12 +24,11 @@ Newton polar projection onto SO(3) that the PnP solver's DLT uses.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ergo_uvo_tpu_torch.cuda_build import load_library
-from ergo_uvo_tpu_torch.utils.profiling import count
+from ergo_uvo_tpu_torch import cuda_build
+from ergo_uvo_tpu_torch.cuda_build import INT, PTR
+
 KERNEL_SIZES = (3, 9, 12)  # the n the kernel is built for
 
 
@@ -80,17 +79,7 @@ def jacobi_eigh_reference(A: torch.Tensor, sweeps: int = 7):
     return eigvals, V
 
 
-_C_INT = ctypes.c_int
-_C_PTR = ctypes.c_void_p
-
-
-def _library() -> ctypes.CDLL:
-    """The built kernel library; the argument types are set when it is loaded."""
-    lib = load_library("jacobi_eigh")
-    if lib.jacobi_eigh_launch.argtypes is None:
-        lib.jacobi_eigh_launch.argtypes = [_C_PTR] * 3 + [_C_INT] * 3 + [_C_PTR]
-        lib.jacobi_eigh_launch.restype = _C_INT
-    return lib
+SIGNATURES = {"jacobi_eigh_launch": [PTR] * 3 + [INT] * 3 + [PTR]}
 
 
 def _launch(A: torch.Tensor, sweeps: int):
@@ -110,14 +99,10 @@ def _launch(A: torch.Tensor, sweeps: int):
     evecs = torch.empty(A.shape, dtype=A.dtype, device=A.device)
     if batch == 0:
         return evals, evecs
-    lib = _library()
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = lib.jacobi_eigh_launch(a.data_ptr(), evals.data_ptr(), evecs.data_ptr(),
-                                     batch, n, sweeps, stream)
-    if err != 0:
-        raise RuntimeError(f"jacobi_eigh kernel launch failed: cudaError {err}")
-    count("jacobi_eigh.launches")
+    with cuda_build.on_card(A.device, "jacobi_eigh") as stream:
+        err = cuda_build.bind("jacobi_eigh", SIGNATURES).jacobi_eigh_launch(
+            a.data_ptr(), evals.data_ptr(), evecs.data_ptr(), batch, n, sweeps, stream)
+    cuda_build.launched(err, "jacobi_eigh", "jacobi_eigh.launches")
     return evals, evecs
 
 
@@ -127,11 +112,9 @@ def jacobi_eigh(A: torch.Tensor, sweeps: int = 7):
     Returns (eigvals (..., n) ascending, eigvecs (..., n, n) as columns); the
     input is not modified.  See the module doc for the dispatch.
     """
-    if A.is_cuda:
+    if cuda_build.use_kernel(A.device, "jacobi_eigh"):
         return _launch(A, sweeps)
-    if A.device.type == "cpu":
-        return jacobi_eigh_reference(A, sweeps)
-    raise ValueError(f"jacobi_eigh: no implementation for device {A.device}")
+    return jacobi_eigh_reference(A, sweeps)
 
 
 def smallest_eigvec(A: torch.Tensor, sweeps: int = 7) -> torch.Tensor:

@@ -27,11 +27,10 @@ This file imports no JAX, so that it also runs on the machine with the card:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_pnp_kernel.py
 """
 
-import contextlib
-
 import numpy as np
 import pytest
 import torch
+from kernel_fakes import FakeLibrary, mock_card, mock_library
 
 from ergo_uvo_tpu_torch.config import StereoVOConfig, SurfConfig
 from ergo_uvo_tpu_torch.convert import stereo_rig_from_numpy
@@ -151,32 +150,6 @@ def test_other_devices_are_refused():
         pnp.refine_pnp(*args)
 
 
-class FakeLibrary:
-    """Stands in for the built library: records each call and returns ``err``."""
-
-    def __init__(self, err=0):
-        self.calls, self.err = [], err
-
-    def __getattr__(self, name):
-        def call(*args):
-            self.calls.append((name, args))
-            return self.err
-
-        return call
-
-
-def mock_card(monkeypatch, lib, stream=7):
-    """Mock the library and the card's context: any device is taken, with
-    ``stream`` its stream."""
-    @contextlib.contextmanager
-    def on_card(device):
-        yield stream
-
-    monkeypatch.setattr(pnp, "_library", lambda: lib)
-    monkeypatch.setattr(pnp, "_on_card", on_card)
-    return lib
-
-
 @pytest.fixture
 def fake_library(monkeypatch):
     return mock_card(monkeypatch, FakeLibrary())
@@ -192,7 +165,7 @@ def test_one_launch_a_refinement_counted(fake_library, n, refine_iters, polish_r
     stream."""
     Rs, ts, best, inliers, Kt, X, xy, mask = args = scene(n=n)
     before = COUNTERS["pnp_refine.launches"]
-    out = pnp._refine_on_card(*args, 1.5, 6, refine_iters, polish_rounds)
+    out = pnp._launch(*args, 1.5, 6, refine_iters, polish_rounds)
     assert COUNTERS["pnp_refine.launches"] == before + 1
     [(name, got)] = fake_library.calls
     assert name == "pnp_refine"
@@ -210,7 +183,7 @@ def test_a_failed_launch_raises_and_is_not_counted(monkeypatch):
     mock_card(monkeypatch, FakeLibrary(err=1), stream=0)
     before = COUNTERS["pnp_refine.launches"]
     with pytest.raises(RuntimeError, match="pnp_refine: kernel launch failed: cudaError 1"):
-        pnp._refine_on_card(*scene(n=32), 1.0, 5, 8, 3)
+        pnp._launch(*scene(n=32), 1.0, 5, 8, 3)
     assert COUNTERS["pnp_refine.launches"] == before
 
 
@@ -242,7 +215,7 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(fake_library, field, value,
     """The checks come before any build or launch; nothing falls back."""
     before = COUNTERS["pnp_refine.launches"]
     with pytest.raises(error, match="pnp_refine"):
-        pnp._refine_on_card(*_bad(field, value), 1.0, 5, 8, 3)
+        pnp._launch(*_bad(field, value), 1.0, 5, 8, 3)
     assert COUNTERS["pnp_refine.launches"] == before and not fake_library.calls
 
 
@@ -251,18 +224,17 @@ def test_too_many_slots_are_refused(fake_library):
     args = [torch.zeros(4, 3, 3), torch.zeros(4, 3), torch.tensor(0), torch.zeros(n, dtype=torch.bool),
             torch.eye(3), torch.zeros(n, 3), torch.zeros(n, 2), torch.zeros(n, dtype=torch.bool)]
     with pytest.raises(ValueError, match="at most 32768 slots"):
-        pnp._refine_on_card(*args, 1.0, 5, 8, 3)
+        pnp._launch(*args, 1.0, 5, 8, 3)
     assert not fake_library.calls
 
 
 def test_tensors_off_the_card_are_refused(monkeypatch):
     """CPU tensors given to the kernel's wrapper raise before anything is
     launched: the kernel would read host pointers."""
-    lib = FakeLibrary()
-    monkeypatch.setattr(pnp, "_library", lambda: lib)
+    lib = mock_library(monkeypatch, FakeLibrary())
     before = COUNTERS["pnp_refine.launches"]
     with pytest.raises(ValueError, match="pnp_refine: the kernel takes tensors on a CUDA device"):
-        pnp._refine_on_card(*scene(n=32), 1.0, 5, 8, 3)
+        pnp._launch(*scene(n=32), 1.0, 5, 8, 3)
     assert COUNTERS["pnp_refine.launches"] == before and not lib.calls
 
 

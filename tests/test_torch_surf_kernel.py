@@ -15,11 +15,11 @@ This file imports no JAX, so that it also runs on the machine with the card:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_surf_kernel.py
 """
 
-import contextlib
-
 import pytest
 import torch
+from kernel_fakes import FakeLibrary, mock_card, mock_library
 
+from ergo_uvo_tpu_torch import cuda_build
 from ergo_uvo_tpu_torch.features import detector, surf_hessian
 from ergo_uvo_tpu_torch.features.integral import integral_image, pad_integral
 from ergo_uvo_tpu_torch.io import make_mono_sequence
@@ -56,39 +56,6 @@ def test_cpu_frames_take_the_plain_version(batch, height, width, min_hessian):
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
     assert int(got.count.sum()) > 0 or min_hessian > 1000
-
-
-class FakeLibrary:
-    """Stands in for the built library: records each entry point's call and
-    returns ``err``.  ``current`` is the device the fake ``_on_card`` made
-    current, recorded with each call."""
-
-    def __init__(self, err=0):
-        self.calls, self.err, self.current, self.devices = [], err, None, []
-
-    def __getattr__(self, name):
-        def call(*args):
-            self.calls.append((name, args))
-            self.devices.append(self.current)
-            return self.err
-
-        return call
-
-
-def mock_card(monkeypatch, lib, stream=7):
-    """Mock the library and the card's context: any device is taken, made
-    ``lib.current`` inside the context, with ``stream`` its stream."""
-    @contextlib.contextmanager
-    def on_card(device):
-        lib.current = device
-        try:
-            yield stream
-        finally:
-            lib.current = None
-
-    monkeypatch.setattr(surf_hessian, "_library", lambda: lib)
-    monkeypatch.setattr(surf_hessian, "_on_card", on_card)
-    return lib
 
 
 @pytest.fixture
@@ -128,7 +95,8 @@ def test_launches_are_counted_one_a_kernel(fake_library, batch, height, width, n
 def test_a_failed_launch_raises_and_is_not_counted(monkeypatch):
     mock_card(monkeypatch, FakeLibrary(err=1), stream=0)
     before = COUNTERS["surf_hessian.launches"]
-    with pytest.raises(RuntimeError, match="surf_integral_columns failed: cudaError 1"):
+    with pytest.raises(RuntimeError,
+                       match="surf_hessian: surf_integral_columns: kernel launch failed: cudaError 1"):
         surf_hessian.detect(torch.zeros(1, 32, 32), 16, 50.0, 4, 3, detector.surf_margin(4, 3))
     assert COUNTERS["surf_hessian.launches"] == before
 
@@ -153,10 +121,9 @@ def test_frames_off_the_card_are_refused(monkeypatch, batch, k):
     """CPU frames given to the kernels' wrapper raise before anything is
     allocated or launched, empty ones too: the kernels would read host
     pointers."""
-    lib = FakeLibrary()
-    monkeypatch.setattr(surf_hessian, "_library", lambda: lib)
+    lib = mock_library(monkeypatch, FakeLibrary())
     before = COUNTERS["surf_hessian.launches"]
-    with pytest.raises(ValueError, match="surf_hessian: the kernels take frames on a CUDA device"):
+    with pytest.raises(ValueError, match="surf_hessian: the kernel takes tensors on a CUDA device"):
         surf_hessian.detect(torch.zeros(batch, 32, 32), k, 50.0, 4, 3, detector.surf_margin(4, 3))
     assert COUNTERS["surf_hessian.launches"] == before and not lib.calls
 
@@ -231,7 +198,7 @@ def test_kernel_stages_match_the_plain_version_bit_for_bit(card_frames, name):
     b, h, w = frames.shape
     margin = detector.surf_margin(n_octaves, n_layers)
     shape = surf_hessian.SurfShape(b, h, w, n_octaves, n_layers + 2, margin)
-    with surf_hessian._on_card(frames.device) as stream:
+    with cuda_build.on_card(frames.device, "surf_hessian") as stream:
         table = surf_hessian.padded_integral(frames, shape, stream)
         det, trace = surf_hessian.responses(table, shape, stream)
         scores = surf_hessian.peak_scores(det, shape, min_hessian, stream)
